@@ -1,0 +1,1 @@
+"""See the package docstring of mvsnerf_tpu_torch."""
