@@ -40,7 +40,18 @@ SIGNATURES = {
     # ndc, z, colors, dirs, vol, weights, out, N, S, D, HP, WP,
     # n_weights, stream
     "render_v0": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # vol, ndc, out, n_samples, D, HP, WP, C, stream
+    "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, ndc, gvol, n_samples, D, HP, WP, C, stream
+    "volume_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, out, N, n_weights, scratch (or null), stream
+    "mlp_v0_fwd": [_P, _P, _P, _I, _I, _P, _P],
+    # g, w, wt, scratch, partial, dw, dx, N, n_splits, n_weights, stream
+    "mlp_v0_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # N -> floats of scratch mlp_v0_bwd needs
+    "mlp_v0_scratch_floats": [_I],
 }
+RESTYPES = {"mlp_v0_scratch_floats": ctypes.c_longlong}  # else c_int
 
 _lib = None
 build_log = ""
@@ -81,7 +92,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -16,18 +16,10 @@ from .. import set_precision_policy
 from ..models.mvsnet import N_DEPTH_PLANES
 from ..render.hybrid import make_hybrid_renderer
 from ..render.renderer import make_chunked_renderer
+from ..train.common import unpreprocess_images
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 RENDER_MODES = {"chunked": make_chunked_renderer,
                 "hybrid": make_hybrid_renderer}
-
-
-def unpreprocess_images(imgs):
-    """Undo the ImageNet normalisation of (..., 3) channel-last images."""
-    mean = torch.tensor(IMAGENET_MEAN, device=imgs.device)
-    std = torch.tensor(IMAGENET_STD, device=imgs.device)
-    return imgs * std + mean
 
 
 class Evaluator:

@@ -26,8 +26,7 @@ _COSTREG_DEC = ("conv7", "conv9", "conv11")
 
 
 def _t(x):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x,
-                                                            np.float32)))
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
 
 
 def _put_linear(sd, prefix, p):
@@ -91,9 +90,25 @@ def modules_from_state_dicts(fn_sd, mvs_sd, device=None):
     return mlp, mvsnet
 
 
+def volume_from_jax(volume):
+    """The JAX fine-tune trainer's `params["volume"]` ((D, h, w, C),
+    channel-last, the port's layout too) -> a float32 tensor."""
+    return _t(volume)
+
+
+def volume_from_state(vol_sd):
+    """A reference checkpoint's `volume` entry (RefVolume.feat_volume
+    (1, C, D, h, w)) -> the (D, h, w, C) channel-last volume."""
+    return vol_sd["feat_volume"][0].permute(1, 2, 3, 0).float().contiguous()
+
+
 def load_reference_checkpoint(path: str, device=None):
-    """torch.load a reference-format checkpoint -> (MVSNeRF, MVSNet), both
-    loaded with strict=True."""
+    """torch.load a reference-format checkpoint -> (MVSNeRF, MVSNet,
+    volume): both modules loaded with strict=True; the fine-tuned (D, h, w,
+    C) volume when the checkpoint holds one, else None."""
     ck = torch.load(path, map_location=device, weights_only=True)
-    return modules_from_state_dicts(ck["network_fn_state_dict"],
-                                    ck["network_mvs_state_dict"], device)
+    mlp, mvsnet = modules_from_state_dicts(ck["network_fn_state_dict"],
+                                           ck["network_mvs_state_dict"],
+                                           device)
+    volume = volume_from_state(ck["volume"]) if ck.get("volume") else None
+    return mlp, mvsnet, volume

@@ -32,17 +32,21 @@ _LAYERS = ([("pts_linears.0", 63, 128), ("pts_bias", 20, 128)]
 N_WEIGHTS = sum(i * o + o for _, i, o in _LAYERS)
 
 
-def pack_v0_weights(mlp):
-    """The v0 MLP's weights as the kernel reads them: for each layer of
-    `_LAYERS`, the (in, out) matrix row-major, then the bias."""
+def pack_v0_weights(mlp, transposed: bool = False):
+    """The v0 MLP's weights as the kernels read them: for each layer of
+    `_LAYERS`, the (in, out) matrix row-major, then the bias. With
+    `transposed`, each matrix is stored (out, in) instead (nn.Linear's own
+    layout) at the same offsets. Built without detaching, so a gradient of
+    the packed vector flows back onto the module's parameters."""
     parts = []
     for name, n_in, n_out in _LAYERS:
         lin = mlp.nerf.get_submodule(name)
         if lin.weight.shape != (n_out, n_in):
-            raise ValueError(f"render kernel: {name} is "
+            raise ValueError(f"v0 kernel: {name} is "
                              f"{tuple(lin.weight.shape)}, want "
                              f"({n_out}, {n_in})")
-        parts += [lin.weight.detach().t().reshape(-1), lin.bias.detach()]
+        w = lin.weight if transposed else lin.weight.t()
+        parts += [w.reshape(-1), lin.bias]
     return torch.cat(parts).float().contiguous()
 
 
@@ -85,7 +89,8 @@ def render_v0(pts_ndc, z_vals, colors, dirs, volume, mlp):
     if S % 8 or N < 1 or N >= 2 ** 31:
         raise ValueError(f"render kernel: needs S % 8 == 0 and 0 < N < "
                          f"2**31, got N={N}, S={S}")
-    weights = pack_v0_weights(mlp)
+    with torch.no_grad():
+        weights = pack_v0_weights(mlp)
     for name, t in (("pts_ndc", pts_ndc), ("z_vals", z_vals),
                     ("colors", colors), ("dirs", dirs), ("volume", volume),
                     ("weights", weights)):

@@ -1,0 +1,127 @@
+"""K5: the trainable-volume gather (forward) and splat (backward), and the
+plain twin.
+
+`sample_volume(volume, ndc)` is a trilinear, zeros-padded,
+align_corners=True fetch of a (D, hp, wp, C) float32 volume at (N, S, 3)
+NDC in [0, 1] ordered (x, y, z), returning (N, S, C): the function of
+`index_point_feature`, differentiable with respect to the volume. For CUDA
+tensors it is a `torch.autograd.Function` over csrc/volume_gather.cu:
+the forward gathers, the backward zeroes a dense volume gradient and
+splats the cotangent into it with atomics. The NDC gradient, when asked
+for, is the plain grid_sample VJP, as the JAX kernel computes it
+(mvsnerf_tpu/ops/pallas_volgather2.py:338-341). For CPU tensors it runs
+the plain twin `sample_volume_plain`; any other device raises.
+
+Replaces mvsnerf_tpu/ops/pallas_volgather2.py:268 `sample_volume_pallas2`
+(via `sample_volume_sorted`, render/renderer.py:187-193) and the role of
+the banded XLA VJP `sample_volume_train`. What bounds it on the H100: the
+forward reads 8 corners x 32 B per sample and writes 32 B; the backward
+zeroes the 150 MB volume gradient and issues 64 f32 atomics per sample.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._build import check, library, stream_of
+from .interp import grid_sample_3d, index_point_feature
+
+
+def sample_volume_plain(volume, ndc):
+    """Plain twin of K5: `index_point_feature` under autograd."""
+    return index_point_feature(volume, ndc)
+
+
+def _check_args(volume, ndc):
+    if volume.dim() != 4 or ndc.dim() != 3 or ndc.shape[-1] != 3:
+        raise ValueError(f"volume gather kernel: bad shapes volume "
+                         f"{tuple(volume.shape)}, ndc {tuple(ndc.shape)}")
+    D, hp, wp, C = volume.shape
+    if C % 4 or min(D, hp, wp) < 1:
+        raise ValueError(f"volume gather kernel: needs C % 4 == 0, got "
+                         f"volume {tuple(volume.shape)}")
+    for name, t in (("volume", volume), ("ndc", ndc)):
+        if t.device != volume.device or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"volume gather kernel: {name} must be "
+                             f"contiguous float32 on {volume.device}")
+    if ndc.shape[0] * ndc.shape[1] * (C // 4) >= 2 ** 31 or \
+            volume.numel() >= 2 ** 31:
+        raise ValueError("volume gather kernel: sizes exceed int32")
+
+
+def volume_gather_kernel(volume, ndc):
+    """K5 forward on the card: (N, S, C) features (no autograd)."""
+    _check_args(volume, ndc)
+    D, hp, wp, C = volume.shape
+    N, S, _ = ndc.shape
+    out = torch.empty((N, S, C), device=volume.device)
+    rc = library().volume_gather_fwd(
+        volume.data_ptr(), ndc.data_ptr(), out.data_ptr(), N * S, D, hp, wp,
+        C, stream_of(volume))
+    check(rc, "volume_gather_fwd")
+    sample_volume.launches += 1
+    return out
+
+
+def volume_splat_kernel(g, ndc, volume_shape):
+    """K5 backward on the card: the (D, hp, wp, C) volume gradient of the
+    (N, S, C) cotangent `g`, zeroed then splatted with atomics."""
+    D, hp, wp, C = volume_shape
+    gvol = torch.zeros(volume_shape, device=g.device)
+    _check_args(gvol, ndc)
+    if g.shape != (*ndc.shape[:2], C) or g.dtype != torch.float32 or \
+            g.device != gvol.device or not g.is_contiguous():
+        raise ValueError(f"volume splat kernel: bad cotangent "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    N, S, _ = ndc.shape
+    rc = library().volume_splat_bwd(
+        g.data_ptr(), ndc.data_ptr(), gvol.data_ptr(), N * S, D, hp, wp, C,
+        stream_of(g))
+    check(rc, "volume_splat_bwd")
+    sample_volume.bwd_launches += 1
+    return gvol
+
+
+def volume_splat_plain(g, ndc, volume):
+    """Plain twin of K5's backward: the grid_sample VJP with respect to
+    the volume."""
+    with torch.enable_grad():
+        v = volume.detach().requires_grad_()
+        return torch.autograd.grad(sample_volume_plain(v, ndc), v, g)[0]
+
+
+class _SampleVolume(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, volume, ndc):
+        ctx.save_for_backward(volume, ndc)
+        return volume_gather_kernel(volume, ndc)
+
+    @staticmethod
+    def backward(ctx, g):
+        volume, ndc = ctx.saved_tensors
+        g = g.contiguous()
+        g_vol = g_ndc = None
+        if ctx.needs_input_grad[0]:
+            g_vol = volume_splat_kernel(g, ndc, volume.shape)
+        if ctx.needs_input_grad[1]:
+            with torch.enable_grad():
+                nd = ndc.detach().requires_grad_()
+                out = grid_sample_3d(volume.detach(), nd * 2.0 - 1.0)
+                g_ndc, = torch.autograd.grad(out, nd, g)
+        return g_vol, g_ndc
+
+
+def sample_volume(volume, ndc):
+    """Trilinear zeros-padded fetch of `volume` (D, hp, wp, C) at `ndc`
+    (N, S, 3) in [0, 1] -> (N, S, C), differentiable in both arguments."""
+    if volume.device.type == "cpu":
+        return sample_volume_plain(volume, ndc)
+    if volume.device.type != "cuda":
+        raise ValueError(f"sample_volume: no kernel for {volume.device}")
+    return _SampleVolume.apply(volume, ndc)
+
+
+sample_volume.launches = 0      # forward gathers
+sample_volume.bwd_launches = 0  # backward splats

@@ -1,29 +1,39 @@
 """The chunked volume-rendering pipeline (counterpart of
 mvsnerf_tpu/render/renderer.py, v0 MLP).
 
-Per sample: trilinear fetch from the encoding volume (`grid_sample`),
-per-view colours + masks (kernel K4 on the card), positional encoding, the
-MLP, and alpha compositing. Full images are rendered by a Python loop over
-fixed-size ray chunks (`render_image_chunked`).
+Per sample: trilinear fetch from the encoding volume, per-view colours +
+masks (kernel K4 on the card), positional encoding, the MLP, and alpha
+compositing. Full images are rendered by a Python loop over fixed-size ray
+chunks (`render_image_chunked`).
+
+The eval route fetches with `grid_sample` and runs the module's MLP. The
+training route (`training=True`, the fine-tune step) differentiates with
+respect to the volume: the fetch goes through K5 (`sample_volume`) and the
+MLP through K7 (`mlp_v0_train`). `twins=True` runs the training route on
+the kernels' plain twins instead, to hold one against the other.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.color_warp import color_warp
+from ..ops.color_warp import color_warp, color_warp_plain
 from ..ops.compositing import raw2outputs
 from ..ops.encoding import positional_encoding
 from ..ops.geometry import get_ndc_coordinate
 from ..ops.interp import index_point_feature
+from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
 from ..ops.sampling import ray_marcher
+from ..ops.volume_gather import sample_volume, sample_volume_plain
 
 
-def build_color_volume(pts_world, w2cs, intrinsics, imgs):
+def build_color_volume(pts_world, w2cs, intrinsics, imgs,
+                       twins: bool = False):
     """Per-sample source-view colours + in-bounds masks, (N, S, 4V) in
     per-view blocks [RGB (border padding), mask] (utils.py:300-332)."""
-    return color_warp(pts_world.contiguous(), w2cs.contiguous(),
-                      intrinsics.contiguous(), imgs.contiguous())
+    warp = color_warp_plain if twins else color_warp
+    return warp(pts_world.contiguous(), w2cs.contiguous(),
+                intrinsics.contiguous(), imgs.contiguous())
 
 
 def gen_dir_feature(w2c_ref, rays_dir):
@@ -31,25 +41,43 @@ def gen_dir_feature(w2c_ref, rays_dir):
     return rays_dir @ w2c_ref[:3, :3].T
 
 
-def gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs):
-    """Per-sample MLP feature: 8 volume channels + 12 colour channels."""
-    colors = build_color_volume(pts_world, w2cs, intrinsics, imgs)
-    return torch.cat([index_point_feature(volume, pts_ndc), colors], dim=-1)
+def gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
+                  training: bool = False, twins: bool = False):
+    """Per-sample MLP feature: 8 volume channels + 12 colour channels.
+    `training` fetches through K5 (or its twin), differentiably in the
+    volume."""
+    colors = build_color_volume(pts_world, w2cs, intrinsics, imgs, twins)
+    if training:
+        fetch = sample_volume_plain if twins else sample_volume
+        ray_feats = fetch(volume, pts_ndc.contiguous())
+    else:
+        ray_feats = index_point_feature(volume, pts_ndc)
+    return torch.cat([ray_feats, colors], dim=-1)
 
 
-def run_network(mlp, pts_ndc, viewdirs, feats):
-    """PE (10 frequencies) + concat + MLP: x = [PE(ndc) | feats | viewdirs]
-    -> (N, S, 4)."""
+def network_input(pts_ndc, viewdirs, feats):
+    """The MLP's input x = [PE(ndc) (10 frequencies) | feats | viewdirs],
+    (N, S, 86)."""
     if viewdirs.dim() != pts_ndc.dim():
         viewdirs = viewdirs[:, None].expand(*pts_ndc.shape[:-1],
                                             viewdirs.shape[-1])
-    x = torch.cat([positional_encoding(pts_ndc, 10), feats, viewdirs],
-                  dim=-1)
+    return torch.cat([positional_encoding(pts_ndc, 10), feats, viewdirs],
+                     dim=-1)
+
+
+def run_network(mlp, pts_ndc, viewdirs, feats, training: bool = False,
+                twins: bool = False):
+    """PE + concat + MLP -> (N, S, 4). `training` runs the MLP through K7
+    (or its twin)."""
+    x = network_input(pts_ndc, viewdirs, feats)
+    if training:
+        return (mlp_v0_train_plain if twins else mlp_v0_train)(mlp, x)
     return mlp(x)
 
 
 def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
-                w2cs, intrinsics, imgs, white_bkgd: bool = False):
+                w2cs, intrinsics, imgs, white_bkgd: bool = False,
+                training: bool = False, twins: bool = False):
     """The render entry (renderer.py:138-165).
 
     Args:
@@ -58,26 +86,33 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
         pts_world / pts_ndc: (N, S, 3); z_vals: (N, S); rays_dir: (N, 3).
         w2c_ref: reference world-to-camera (view-direction feature).
         w2cs / intrinsics / imgs: source views for the colours.
+        training: the fine-tune step's route (K5 fetch, K7 MLP).
+        twins: with `training`, the kernels' plain twins instead.
     Returns:
         dict rgb, depth, acc, disp, weights, alpha.
     """
     unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
                                              keepdim=True)
     angle = gen_dir_feature(w2c_ref, unit_dirs)
-    feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs)
-    raw = run_network(mlp, pts_ndc, angle, feats)
+    feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
+                          training, twins)
+    raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
     return raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
 
 
 def sample_rays(rays, n_samples: int, w2c_ref, intrinsic_ref, src_hw,
-                near_far, pad: int):
-    """Deterministic samples of a (N, 8) ray buffer and their reference
-    NDC: (pts (N, S, 3), rays_d (N, 3), z_vals (N, S), pts_ndc (N, S, 3)).
-    NDC is normalised by the SOURCE views' extent `src_hw`: the volume's
-    feature grid is sized by them (the pad remap)."""
-    pts, _, rays_d, z_vals = ray_marcher(rays, n_samples)
-    inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0],
-                             device=rays.device)
+                near_far, pad: int, perturb: float = 0.0,
+                generator: torch.Generator | None = None):
+    """Samples of a (N, 8) ray buffer and their reference NDC: (pts
+    (N, S, 3), rays_d (N, 3), z_vals (N, S), pts_ndc (N, S, 3)). Depths
+    are jittered by `perturb` with draws from `generator` (on the rays'
+    device). NDC is normalised by the SOURCE views' extent `src_hw`: the
+    volume's feature grid is sized by them (the pad remap)."""
+    pts, _, rays_d, z_vals = ray_marcher(rays, n_samples, perturb=perturb,
+                                         generator=generator)
+    # staged copy: a blocking one would wait for the device every batch
+    inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0]).to(
+        rays.device, non_blocking=True)
     pts_ndc = get_ndc_coordinate(w2c_ref, intrinsic_ref, pts, inv_scale,
                                  near=near_far[0], far=near_far[1], pad=pad)
     return pts, rays_d, z_vals, pts_ndc

@@ -25,6 +25,18 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.render.renderer",
     "mvsnerf_tpu_torch.render.hybrid",
     "mvsnerf_tpu_torch.eval.evaluate",
+    "mvsnerf_tpu_torch.ops.volume_gather",
+    "mvsnerf_tpu_torch.ops.mlp_train",
+    "mvsnerf_tpu_torch.utils.schedulers",
+    "mvsnerf_tpu_torch.utils.logging",
+    "mvsnerf_tpu_torch.io.checkpoint",
+    "mvsnerf_tpu_torch.config",
+    "mvsnerf_tpu_torch.data.common",
+    "mvsnerf_tpu_torch.data.pairs",
+    "mvsnerf_tpu_torch.data.dtu_ft",
+    "mvsnerf_tpu_torch.train.common",
+    "mvsnerf_tpu_torch.train.finetune",
+    "mvsnerf_tpu_torch.train_finetune",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,7 +61,20 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
-@pytest.mark.parametrize("module", ["sweep", "color_warp", "render_fused"])
+def test_port_never_imports_pil():
+    """The card's machine has no PIL: only `data.common.load_image`, which
+    chip_smoke.py never calls, imports it."""
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'PIL' not in sys.modules\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["sweep", "color_warp", "render_fused",
+                                    "volume_gather", "mlp_train"])
 def test_kernel_module_imports_without_building(module):
     code = ("import mvsnerf_tpu_torch._build as b\n"
             f"import mvsnerf_tpu_torch.ops.{module}\n"

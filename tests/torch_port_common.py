@@ -58,7 +58,9 @@ def port_modules_via_checkpoint(mlp_params, mvsnet_params, path):
     from mvsnerf_tpu.io.torch_ckpt import export_reference_checkpoint
     from mvsnerf_tpu_torch.io.torch_ckpt import load_reference_checkpoint
     export_reference_checkpoint(str(path), mlp_params, mvsnet_params)
-    return load_reference_checkpoint(str(path), device="cpu")
+    mlp, mvsnet, volume = load_reference_checkpoint(str(path), device="cpu")
+    assert volume is None
+    return mlp, mvsnet
 
 
 def t(a):
