@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's no-finetune inference path at DTU scale on a synthetic
-3-view 640x512 scene made from a seed, with seeded random weights:
+Drives the port's paths at DTU scale on synthetic 640x512 scenes made
+from a seed, with seeded random weights: no-finetune inference, the
+per-scene fine-tune step and the generalizable training step.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -29,14 +30,33 @@ Drives the port's no-finetune inference path at DTU scale on a synthetic
      against their plain twins at the step's own shapes; (b) one step on
      the kernels and one on the twins from the same state; (c) 36 steps of
      `fit` (launch counters reset just before), timed over the last 30;
-     (d) `torch.profiler` over 3 steps: device time by kernel group.
+     (d) `torch.profiler` over 3 steps: device time by kernel group;
+  7. generalizable training: `GeneralizableSystem` from a
+     reference-format checkpoint of the same weights, on bench.py's
+     generalizable batch (4 random 640x512 views of the rig, the last the
+     target, random depths in [2, 5]), batch 1024, 128 samples, pad 24,
+     128 planes, depth loss: (a) K2 (the sweep backward) against its plain
+     twin on the cotangent that reaches the sweep in the trainer's own
+     graph, read in place in the layout it arrives in (K3'), and on the
+     same cotangent in channels_last_3d; (b) one step's MLP, CostRegNet
+     and FeatureNet gradients on the kernels, on the twins and on the
+     twins in float64, from one state and draws; (c) 12 steps of `fit`
+     (launch counters reset just before), timed over the last 10:
+     generalizable_train_step_ms and peak memory; (d) the step with K7
+     against the step with the module's MLP, and with cuDNN's autotuner;
+     (e) `torch.profiler` over 2 steps: device busy share, time by stage
+     and each stage's largest kernels, and that no operation copied a
+     cost-volume-sized tensor (the U-Net reads K1's output in place).
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
 On success the last two lines are one JSON object of per-kernel results
-and `{"ok": true, "device": {...}}`.
+(error against the plain twin, kernel, twin and library-call times, the
+bound the card's peaks set, launches on the kernel's path) and
+`{"ok": true, "device": {...}}`.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -66,6 +86,22 @@ TOL_K7_BWD = 5.0
 # (Adam's first step moves a value by about lr); ReLU-kink margin
 TOL_STEP_GRAD, STEP_TOL, KINK = 1e-4, 0.02, 5e-6
 FT_BATCH, FT_VIEWS, FT_WARM, FT_TIMED = 1024, 16, 6, 30
+# phase 7, the generalizable step at bench.py:471-486's configuration
+GEN_VIEWS, GEN_BATCH = 4, 1024
+# K2 against its twin: x max|twin|. f32 atomics add the source gradients in
+# an order that changes from run to run.
+TOL_K2 = 1e-5
+# one generalizable step's gradients: the kernels' distance from a float64
+# run of the twins, per module, at most TOL_GEN_GRAD x the float32 twins'
+# own (floored at 1e-6 x max|g|). The step runs the U-Net's cuDNN backward
+# (which sums in a run-dependent order) and the atomics of K2 and K5, and
+# its batch-statistics norms cancel most of each weight gradient, so a
+# fixed share of max|g| says less than the twins' own float32 error. Rays
+# with a sample near a ReLU kink of the MLP are not drawn (KINK, the
+# fine-tune step's rule). Nothing is left out at MVSNet's LeakyReLU
+# kinks: the float32 twins take the other side of some of them too.
+TOL_GEN_GRAD = 5.0
+GEN_WARM, GEN_TIMED, GEN_AB = 2, 10, 3
 
 
 def require(cond, msg):
@@ -93,22 +129,22 @@ def pose(i, da=0.0, dt=0.0):
     return m
 
 
-def make_scene(rng, h=H, w=W, focal=FOCAL):
-    """3 views of random images with the bench's camera rig: normalised
+def make_scene(rng, h=H, w=W, focal=FOCAL, v=3):
+    """v views of random images with the bench's camera rig: normalised
     images, relative stride-4 projections, w2cs and intrinsics."""
-    imgs = rng.uniform(0, 1, (3, h, w, 3)).astype(np.float32)
+    imgs = rng.uniform(0, 1, (v, h, w, 3)).astype(np.float32)
     mean = np.array([0.485, 0.456, 0.406], np.float32)
     std = np.array([0.229, 0.224, 0.225], np.float32)
     intr = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
                     np.float32)
     intr_s4 = intr.copy()
     intr_s4[:2] /= 4
-    w2cs = np.stack([pose(i) for i in range(3)])
-    p4 = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    w2cs = np.stack([pose(i) for i in range(v)])
+    p4 = np.tile(np.eye(4, dtype=np.float32), (v, 1, 1))
     p4[:, :3] = intr_s4 @ w2cs[:, :3]
     projs = (p4 @ np.linalg.inv(p4[0]))[:, :3].astype(np.float32)
     return ((imgs - mean) / std, projs,
-            {"w2cs": w2cs, "intrinsics": np.stack([intr] * 3)})
+            {"w2cs": w2cs, "intrinsics": np.stack([intr] * v)})
 
 
 def seeded_init_(module, gen):
@@ -141,6 +177,17 @@ def rays_for_pose(w2c, intr, h, w, device):
     return torch.cat([o, d, nf], dim=-1)
 
 
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """`module.name` set to `value` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
 def cuda_ms(fn, reps=3):
     """Mean CUDA-event time of `fn` over `reps` runs after one warm-up."""
     import torch
@@ -170,6 +217,83 @@ def max_err(a, b):
     if isinstance(a, dict):
         return max(max_err(a[k], b[k]) for k in a)
     return float((a - b).abs().max())
+
+
+# the H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W):
+# device-memory bytes/s and float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the
+    memory rate and its operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sweep_flops(V, C, voxels, backward=False):
+    """Operations of one K1 (or K2) call. Per voxel and source view: the
+    projection and normalisation (39) and 4 bilinear taps of C + 3
+    channels (a multiply and an add each). K1 then takes the variance
+    over V views (3 per channel and view, 4 more per channel); K2 the
+    variance gradient (4 per channel and view), scattered back through the
+    same taps."""
+    warp = (V - 1) * (39 + 8 * (C + 3))
+    if backward:
+        return voxels * (2 * warp + 4 * C * V)
+    return voxels * (warp + C * (3 * V + 4))
+
+
+def touched_volume_bytes(volume, ndc):
+    """Bytes of the distinct cells of a (D, hp, wp, C) volume that the
+    trilinear taps at (..., 3) NDC reach: what this run's gather reads."""
+    import torch
+    D, hp, wp, C = volume.shape
+    size = torch.tensor([wp, hp, D], device=ndc.device)
+    base = (ndc.reshape(-1, 3) * (size - 1)).floor().long()
+    cells = []
+    for corner in range(8):
+        c = base + torch.tensor([corner & 1, corner >> 1 & 1, corner >> 2],
+                                device=ndc.device)
+        inside = ((c >= 0) & (c < size)).all(-1)
+        cells.append(((c[:, 2] * hp + c[:, 1]) * wp + c[:, 0])[inside])
+    return torch.unique(torch.cat(cells)).numel() * C * 4
+
+
+def mlp_flops(n_samples, backward=False):
+    """The v0 MLP's multiply-adds (nn.Linear weights, 125,476 a sample)
+    times 2; the backward forms both dx and dW, twice the forward."""
+    from mvsnerf_tpu_torch.ops.render_fused import _LAYERS
+    macs = sum(i * o for _, i, o in _LAYERS)
+    return 2 * macs * n_samples * (2 if backward else 1)
+
+
+def layout(t):
+    """The memory layout of a 5-D tensor, by name where it has one."""
+    import torch
+    if t.is_contiguous(memory_format=torch.channels_last_3d):
+        return "channels_last_3d"
+    return "NCDHW" if t.is_contiguous() else f"strides {t.stride()}"
+
+
+def report(phase, kernels, failures):
+    """Print each kernel entry and hold it to its tolerance."""
+    for k in kernels:
+        lib = "none" if k["library_ms"] is None else \
+            f"{k['library_ms']:.3f} ms"
+        print(f"[{phase} kernel] {k['name']}: max_abs_err "
+              f"{k['max_abs_err']:.3e} (tol {k['tol']:.1e}), kernel "
+              f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
+              f"{lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+        check(k["max_abs_err"] <= k["tol"],
+              f"{k['name']} disagrees with its plain twin", failures)
 
 
 class FinetuneScene:
@@ -251,11 +375,13 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = []
 
-    def entry(name, source, replaces, err, tol, fn_k, fn_p, **extra):
+    def entry(name, source, replaces, err, tol, fn_k, fn_p, fn_lib,
+              n_bytes, flops, **extra):
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, max_abs_err=err, tol=tol,
                             ms=cuda_ms(fn_k), plain_ms=cuda_ms(fn_p),
-                            **extra))
+                            library_ms=fn_lib and cuda_ms(fn_lib),
+                            **bound(n_bytes, flops), **extra))
 
     src5 = "mvsnerf_tpu_torch/csrc/volume_gather.cu"
     rep5 = "mvsnerf_tpu/ops/pallas_volgather2.py:268"
@@ -269,21 +395,35 @@ def finetune_phase(dev, mlp, mvsnet, failures):
             system.near_far, PAD, perturb=args.perturb,
             generator=gen)[3].contiguous()
         v = vol.detach()
+        n5, c5 = ndc[..., 0].numel(), v.shape[-1]
+        # the library call: one 3-D grid_sample (and its backward) on the
+        # NCDHW volume, laid out beforehand
+        vol5 = v.permute(3, 0, 1, 2)[None].contiguous()
+        grid5 = (ndc * 2 - 1).reshape(1, -1, 1, 1, 3)
         f_k, f_p = k5.volume_gather_kernel(v, ndc), \
             k5.sample_volume_plain(v, ndc)
         entry("K5 volume_gather (fwd)", src5, rep5, max_err(f_k, f_p),
               TOL_K5 * (1 + float(f_p.abs().max())),
               lambda: k5.volume_gather_kernel(v, ndc),
-              lambda: k5.sample_volume_plain(v, ndc))
+              lambda: k5.sample_volume_plain(v, ndc),
+              lambda: torch.nn.functional.grid_sample(
+                  vol5, grid5, mode="bilinear", padding_mode="zeros",
+                  align_corners=True),
+              touched_volume_bytes(v, ndc) + nbytes(ndc, f_k),
+              n5 * (30 + 8 * c5 * 2))
         g5 = torch.randn(f_p.shape, device=dev, generator=gen)
+        g5_lib = g5.reshape(-1, c5).t().reshape(1, c5, -1, 1, 1).contiguous()
         b_k = k5.volume_splat_kernel(g5, ndc, v.shape)
         b_p = k5.volume_splat_plain(g5, ndc, v)
         v_r = v.clone().requires_grad_()
         entry("K5 volume_splat (bwd)", src5, rep5, max_err(b_k, b_p),
               TOL_K5 * (1 + float(b_p.abs().max())),
               lambda: k5.volume_splat_kernel(g5, ndc, v.shape),
-              grad_only(lambda: k5.sample_volume_plain(v_r, ndc), v_r, g5))
-        del f_k, f_p, g5, b_k, b_p, v_r
+              grad_only(lambda: k5.sample_volume_plain(v_r, ndc), v_r, g5),
+              lambda: torch.ops.aten.grid_sampler_3d_backward(
+                  g5_lib, vol5, grid5, 0, 0, True, [True, False]),
+              nbytes(g5, ndc, b_k), n5 * (30 + 8 * c5 * 2))
+        del f_k, f_p, g5, g5_lib, b_k, b_p, v_r, vol5, grid5
 
         x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
         m = system.mlp
@@ -294,7 +434,8 @@ def finetune_phase(dev, mlp, mvsnet, failures):
         entry("K7 mlp_v0 (fwd)", src7, rep7, max_err(o_k, o_p),
               TOL_K7 * (1 + float(o_p.abs().max())),
               lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
-              lambda: m(x))
+              lambda: m(x), None, nbytes(x, packed, o_k),
+              mlp_flops(len(x)))
         # samples at a ReLU kink get a zero cotangent: float32 puts them
         # on either side of it, and their gradients then differ by design
         kink7 = k7.relu_margin(m, x) <= KINK
@@ -317,7 +458,8 @@ def finetune_phase(dev, mlp, mvsnet, failures):
         entry("K7 mlp_v0 (bwd)", src7, rep7, max_err(dw_k, dw_p),
               tol64(dw_p, dw_64),
               lambda: k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch),
-              grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7),
+              grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7), None,
+              nbytes(g7, x, packed, dx_k, dw_k), mlp_flops(len(x), True),
               dfeat_max_abs_err=feat_err)
         print(f"   K7 bwd: {int(kink7.sum())} of {len(x)} samples at a ReLU "
               f"kink, cotangent zeroed")
@@ -336,12 +478,7 @@ def finetune_phase(dev, mlp, mvsnet, failures):
               failures)
         del x, x_r, scratch, o_k, o_p, g7, dx_k, dw_k, dx_p, dw_p, dx_64, \
             dw_64
-    for k in kernels:
-        print(f"[6 kernel] {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
-              f"(tol {k['tol']:.1e}), kernel {k['ms']:.3f} ms, plain "
-              f"{k['plain_ms']:.3f} ms")
-        check(k["max_abs_err"] <= k["tol"],
-              f"{k['name']} disagrees with its plain twin", failures)
+    report(6, kernels, failures)
 
     # ---- (b) one step on the kernels, one on the twins, same state
     state0 = copy.deepcopy(system.state(0))
@@ -482,6 +619,360 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     return kernels
 
 
+def generalizable_sample(rng):
+    """bench.py's generalizable batch (bench.py:471-486) as a dataset
+    sample: GEN_VIEWS random views of the rig (the target is the last),
+    the fine-tune near/far for every view, random depths in [2, 5]."""
+    imgs_norm, projs, pose_src = make_scene(rng, H, W, FOCAL, GEN_VIEWS)
+    w2cs = pose_src["w2cs"]
+    return {"images": imgs_norm, "proj_mats": projs,
+            "near_fars": np.tile(np.array(NEAR_FAR, np.float32),
+                                 (GEN_VIEWS, 1)),
+            "w2cs": w2cs, "c2ws": np.linalg.inv(w2cs).astype(np.float32),
+            "intrinsics": pose_src["intrinsics"],
+            "depths_h": rng.uniform(2, 5, (GEN_VIEWS, H, W)).astype(
+                np.float32)}
+
+
+# The generalizable step's device timeline in launch order, cut at marker
+# kernels: (name fragment, the marker's group, the group of the kernels
+# after it, or None to stay in the marker's). Before K1: FeatureNet's
+# forward and the sources' resize; between the render's first kernel and
+# K7's backward: the render forward, the loss and the compositing's
+# backward.
+STEP_MARKS = [("sweep_kernel", "K1", "CostRegNet fwd"),
+              ("color_warp_kernel", "render fwd + loss", None),
+              ("mlp_bwd_kernel", "render bwd", None),
+              ("splat_kernel", "render bwd", "CostRegNet bwd"),
+              ("sweep_bwd_kernel", "K2", "FeatureNet bwd"),
+              ("multi_tensor_apply", "Adam", None)]
+
+
+def step_groups(kernels):
+    """Device microseconds by group of a run of whole steps, from
+    (name, us) pairs in launch order (one stream): {group: {kernel name:
+    us}}."""
+    groups = {g: {} for g in (
+        "FeatureNet fwd", "K1", "CostRegNet fwd", "render fwd + loss",
+        "render bwd", "CostRegNet bwd", "K2", "FeatureNet bwd", "Adam",
+        "host copies")}
+    group = "FeatureNet fwd"
+    for name, us in kernels:
+        into = group
+        mark = next((m for m in STEP_MARKS if m[0] in name), None)
+        if name.startswith("Memcpy"):
+            into = "host copies"
+        elif mark is not None:
+            into = mark[1]
+            group = mark[2] or mark[1]
+        elif group == "Adam":  # the next step begins
+            into = group = "FeatureNet fwd"
+        groups[into][name] = groups[into].get(name, 0.0) + us
+    return groups
+
+
+def generalizable_phase(dev, mlp, mvsnet, failures):
+    """Phase 7; returns the K2 entry of the kernels line."""
+    import tempfile
+
+    import torch
+    from mvsnerf_tpu_torch.config import config_parser
+    from mvsnerf_tpu_torch.ops import homography
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import sweep as k12
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.geometry import sample_random_pixels
+    from mvsnerf_tpu_torch.render import renderer
+    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
+
+    t0 = time.perf_counter()
+    sample = generalizable_sample(np.random.default_rng(SEED + 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "seeded.tar")
+        torch.save({"global_step": 0,
+                    "network_fn_state_dict": mlp.state_dict(),
+                    "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
+        args = config_parser(
+            f"--dataset_name dtu --pad {PAD} --N_samples {N_SAMPLES} "
+            f"--batch_size {GEN_BATCH} --with_depth_loss --with_depth "
+            f"--net_type v0 --ckpt {ckpt}")
+        system = GeneralizableSystem(args, device=dev)
+    batch = system.batch(sample)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    print(f"[7 generalizable] {GEN_VIEWS} views of {H}x{W}, batch "
+          f"{GEN_BATCH} x {N_SAMPLES} samples, pad {PAD}, {N_PLANES} "
+          f"planes, depth loss; set up in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) K2 against its twin on the cotangent that reaches the sweep
+    # in the trainer's own graph (`_volume`, i.e. MVSNet.forward, under a
+    # seeded random loss of the (D, hp, wp, 8) volume it returns), in the
+    # layout it arrives in, and on the same cotangent in channels_last_3d
+    captured = {}
+
+    def capturing(srcs, *rest):
+        cost = k12.sweep_cost_volume(srcs, *rest)
+        captured.update(args=(srcs.detach(), *rest), cost=cost)
+        return cost
+
+    with swapped(homography, "sweep_cost_volume", capturing):
+        vol = system._volume(batch)
+    require(captured["cost"].grad_fn is not None,
+            "the card's cost volume has no grad_fn though srcs require grad")
+    g = torch.autograd.grad(
+        (vol * torch.randn(vol.shape, device=dev, generator=gen)).sum(),
+        captured["cost"])[0]
+    k2 = captured["args"]
+    del vol, captured
+    srcs = k2[0]
+    gp = k12.sweep_cost_volume_bwd_plain(g, *k2)
+    ref_max = float(gp.abs().max())
+    path_layout = layout(g)
+    other = g.contiguous(memory_format=torch.channels_last_3d) \
+        if path_layout == "NCDHW" else g.contiguous()
+    gk = k12.sweep_cost_volume_bwd_kernel(g, *k2)
+    rerun = max_err(k12.sweep_cost_volume_bwd_kernel(g, *k2), gk)
+    other_err = max_err(k12.sweep_cost_volume_bwd_kernel(other, *k2), gp)
+    other_ms = cuda_ms(lambda: k12.sweep_cost_volume_bwd_kernel(other, *k2))
+    s_p = srcs.clone().requires_grad_()
+    entry = dict(
+        name="K2 sweep_cost_volume (bwd)", route="cuda",
+        source="mvsnerf_tpu_torch/csrc/sweep.cu",
+        replaces="mvsnerf_tpu/ops/pallas_sweep2.py:210",
+        max_abs_err=max_err(gk, gp), tol=TOL_K2 * ref_max,
+        ms=cuda_ms(lambda: k12.sweep_cost_volume_bwd_kernel(g, *k2)),
+        plain_ms=cuda_ms(grad_only(
+            lambda: k12.sweep_cost_volume_plain(s_p, *k2[1:]), s_p, g)),
+        library_ms=None,
+        **bound(nbytes(g, *k2[:3], gk),
+                sweep_flops(3, 32, g[0, 0].numel(), backward=True)))
+    view_max = [float(gk[v].abs().max()) for v in range(3)]
+    print(f"   K2: cotangent {tuple(g.shape)} reaches the sweep in "
+          f"{path_layout}, read in place; max|twin| {ref_max:.3e}, per-view "
+          f"max |d srcs| {[f'{m:.3e}' for m in view_max]}; kernel "
+          f"run-to-run max diff {rerun:.3e}")
+    print(f"   K2 on the same cotangent in {layout(other)}: max_abs_err "
+          f"{other_err:.3e} (tol {entry['tol']:.1e}), kernel {other_ms:.3f} "
+          f"ms")
+    report(7, [entry], failures)
+    check(other_err <= entry["tol"],
+          f"K2 disagrees with its twin on a {layout(other)} cotangent",
+          failures)
+    check(min(view_max) > 0, "K2 left a view without gradient", failures)
+    del g, gk, gp, s_p, srcs, k2, other
+    torch.cuda.empty_cache()
+
+    # ---- (b) one step's gradients on the kernels, on the twins and on the
+    # twins in float64, from one state and draws: up to GEN_BATCH of
+    # 16 x GEN_BATCH drawn rays whose samples all lie more than KINK from
+    # every ReLU kink of the MLP (the fine-tune step's rule)
+    xs, ys = sample_random_pixels(*batch["images"].shape[1:3],
+                                  16 * GEN_BATCH, gen)
+    u = torch.rand((len(xs), N_SAMPLES), generator=gen, device=dev)
+    margin = k7.relu_margin(system.mlp, system.mlp_input(batch, xs, ys, u))
+    keep = torch.nonzero(margin.reshape(len(xs), -1).amin(1) > KINK)[:, 0]
+    require(len(keep) >= GEN_BATCH // 4,
+            f"only {len(keep)} of {len(xs)} rays clear of the ReLU kinks")
+    keep = keep[:GEN_BATCH]
+    draws = (xs[keep], ys[keep], u[keep])
+    del margin, xs, ys, u
+    state0 = copy.deepcopy(system.state())
+    mv = system.mvsnet
+    parts = {"MLP": system.mlp, "CostRegNet": mv.cost_reg_2,
+             "FeatureNet": mv.feature}
+
+    def sweep_twin(twins):
+        """The sweep's plain twin in place of K1/K2 when `twins`."""
+        if not twins:
+            return contextlib.nullcontext()
+        return swapped(homography, "sweep_cost_volume",
+                       k12.sweep_cost_volume_plain)
+
+    def step_grads(twins, f64=False):
+        """The loss at state0 for the draws and each part's gradient."""
+        system.load_state(state0)
+        b, d = batch, draws
+        if f64:
+            torch.set_default_dtype(torch.float64)
+            system.mlp.double()
+            mv.double()
+            b = {key: val.double() for key, val in batch.items()}
+            d = tuple(t.double() for t in draws)
+        try:
+            system.optimizer.zero_grad(set_to_none=True)
+            launched = k12.sweep_cost_volume.bwd_launches
+            with sweep_twin(twins):
+                loss, aux = system.loss(b, *d, twins=twins)
+                loss.backward()
+            missing = [n for n, q in mv.named_parameters() if q.grad is None]
+            require(not missing, f"no gradient for {missing}")
+            return dict(
+                loss=float(loss.detach()),
+                depth=float(aux["depth_loss"].detach()),
+                k2=k12.sweep_cost_volume.bwd_launches - launched,
+                **{n: torch.cat([q.grad.reshape(-1).double()
+                                 for q in m.parameters()])
+                   for n, m in parts.items()})
+        finally:
+            if f64:
+                torch.set_default_dtype(torch.float32)
+                system.mlp.float()
+                mv.float()
+
+    # the layout the U-Net's backward hands K2 on the real path
+    seen = []
+    bwd_kernel = k12.sweep_cost_volume_bwd_kernel
+
+    def noting_layout(g_cost, *rest):
+        seen.append(layout(g_cost))
+        return bwd_kernel(g_cost, *rest)
+
+    with swapped(k12, "sweep_cost_volume_bwd_kernel", noting_layout):
+        k = step_grads(False)
+    k_again, p, p64 = step_grads(False), step_grads(True), \
+        step_grads(True, f64=True)
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    print(f"[7 step] one step's gradients from one state ({len(keep)} "
+          f"rays): loss kernels {k['loss']:.7f} / twins {p['loss']:.7f} / "
+          f"twins in float64 {p64['loss']:.7f} (rel {loss_rel:.2e}, tol "
+          f"1e-5; depth loss {k['depth']:.5f}); K2 launches {k['k2']} / "
+          f"{p['k2']}; cotangent at K2 in {seen}")
+    for n in parts:
+        g64 = float(p64[n].abs().max())
+        err = {"kernels vs twins": max_err(k[n], p[n]),
+               "kernels run-to-run": max_err(k[n], k_again[n]),
+               "twins vs float64": max_err(p[n], p64[n]),
+               "kernels vs float64": max_err(k[n], p64[n])}
+        tol = TOL_GEN_GRAD * max(err["twins vs float64"], 1e-6 * g64)
+        print(f"   {n}: max|g| {g64:.3e}; " + ", ".join(
+            f"{key} {e:.2e}" for key, e in err.items()) +
+            f" (tol {tol:.2e})")
+        check(err["kernels vs float64"] <= tol,
+              f"the kernel step's {n} gradient is further from float64 "
+              f"than {TOL_GEN_GRAD} x the twin step's", failures)
+    check(loss_rel <= 1e-5, "the kernel and twin steps' losses disagree",
+          failures)
+    check(seen == [path_layout],
+          f"K2 got {seen} in the step, not (a)'s {path_layout}", failures)
+    check(k["k2"] == 1 and p["k2"] == 0 and
+          float(k["FeatureNet"].abs().max()) > 0,
+          "FeatureNet got no gradient through K2", failures)
+    system.load_state(state0)
+    del state0, k, k_again, p, p64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sweep_twin(True):
+        for _ in range(3):
+            system._step(batch, *draws, twins=True)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+    # ---- (c) the main path: fit, launch counters reset just before
+    counters = {"K1 sweep_cost_volume": (k12.sweep_cost_volume, "launches"),
+                "K2 sweep_cost_volume (bwd)": (k12.sweep_cost_volume,
+                                               "bwd_launches"),
+                "K4 color_warp": (color_warp, "launches"),
+                "K5 volume_gather (fwd)": (k5.sample_volume, "launches"),
+                "K5 volume_splat (bwd)": (k5.sample_volume, "bwd_launches"),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    losses = system.fit([sample], num_epochs=GEN_WARM + GEN_TIMED,
+                        logger=clock, seed=SEED, log_every=GEN_WARM)
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    step_ms = (clock.marks[GEN_WARM + GEN_TIMED] - clock.marks[GEN_WARM]) \
+        * 1e3 / GEN_TIMED
+    print(f"[7 fit] {len(losses)} steps, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; steps {GEN_WARM + 1}-{GEN_WARM + GEN_TIMED}: "
+          f"generalizable_train_step_ms {step_ms:.2f}; plain-twin step "
+          f"{plain_step_ms:.2f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {launches}")
+    check(len(losses) == GEN_WARM + GEN_TIMED and
+          all(math.isfinite(v) for v in losses),
+          "fit returned a non-finite loss", failures)
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the generalizable path",
+              failures)
+    entry["launches"] = launches[entry["name"]]
+
+    # ---- (d) the step with K7 against the step with the module's own MLP
+    # (the JAX step pins its XLA MLP here), in turns on one batch; the
+    # training route's MLP is swapped for the module's for the second
+    def steps_ms(module_mlp):
+        mlp_fn = k7.mlp_v0_train_plain if module_mlp else k7.mlp_v0_train
+        with swapped(renderer, "mlp_v0_train", mlp_fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GEN_AB):
+                system._step(batch, *draws)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / GEN_AB
+
+    ab = {"K7": [], "module MLP": []}
+    for which in ("K7", "module MLP", "module MLP", "K7"):
+        ab[which].append(steps_ms(which == "module MLP"))
+    print(f"[7 A/B] ms/step over {GEN_AB} steps in turns: " + "; ".join(
+        f"{n} {[round(t, 2) for t in ts]}" for n, ts in ab.items()))
+    # and with cuDNN choosing its convolution algorithms by timing them
+    # (torch.backends.cudnn.benchmark; the port leaves it off), after one
+    # step that runs the timing
+    torch.backends.cudnn.benchmark = True
+    try:
+        system._step(batch, *draws)
+        tuned = [steps_ms(False) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.benchmark = False
+    print(f"[7 A/B] with cudnn.benchmark: ms/step "
+          f"{[round(t, 2) for t in tuned]}")
+
+    # ---- (e) device time of 2 steps (with their batch copies) by group,
+    # and the operations that copied a cost-volume-sized tensor (none: the
+    # U-Net reads K1's output, and K2 its cotangent, in place)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            b = system.batch(sample)
+            system._step(b, *system.draw(b, gen))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = sorted(
+        ((e.time_range.start, e.name, e.time_range.elapsed_us())
+         for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and
+         not getattr(e, "is_user_annotation", False) and
+         not e.name.startswith("Optimizer.")), key=lambda t: t[0])
+    cost_shape = [1, 41, N_PLANES, H // 4 + 2 * PAD, W // 4 + 2 * PAD]
+    copies = [e.name for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                            "aten::_to_copy") and
+              cost_shape in (getattr(e, "input_shapes", None) or [])]
+    print(f"[7 profile] operations copying a {tuple(cost_shape)} tensor: "
+          f"{copies}")
+    check(not copies, "the step copies the cost volume or its cotangent",
+          failures)
+    total = sum(us for _, _, us in events)
+    if total == 0:
+        print("[7 profile] the profiler saw no device time")
+        return [entry]
+    print(f"[7 profile] 2 steps: device busy {total / 1e3:.2f} of "
+          f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f} %); "
+          f"per step {total / 2e3:.2f} ms of kernels")
+    for grp, names in step_groups([(n, us) for _, n, us in events]).items():
+        us = sum(names.values())
+        print(f"   {grp}: {us / 2e3:.3f} ms/step ({100 * us / total:.1f} %)")
+        for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
+            print(f"      {t / 2e3:8.3f}  {name[:100]}")
+    return [entry]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -547,7 +1038,8 @@ def main():
         k1 = (srcs, proj_t, depths, PAD, 32)
         out_k, out_p = sweep_cost_volume(*k1), sweep_cost_volume_plain(*k1)
         require(out_k.shape == (1, 41, N_PLANES, h4 + 2 * PAD,
-                                w4 + 2 * PAD), f"K1 shape {out_k.shape}")
+                                w4 + 2 * PAD) and out_k.is_contiguous(),
+                f"K1 output {out_k.shape} in {layout(out_k)}, not NCDHW")
         err = max_err(out_k, out_p)
         tol = TOL_K1 * (1 + float(out_p.abs().max()))
         kernels.append(dict(
@@ -556,7 +1048,10 @@ def main():
             replaces="mvsnerf_tpu/ops/pallas_sweep2.py:316",
             max_abs_err=err, tol=tol,
             ms=cuda_ms(lambda: sweep_cost_volume(*k1)),
-            plain_ms=cuda_ms(lambda: sweep_cost_volume_plain(*k1))))
+            plain_ms=cuda_ms(lambda: sweep_cost_volume_plain(*k1)),
+            library_ms=None,
+            **bound(nbytes(srcs, proj_t, depths, out_k),
+                    sweep_flops(3, 32, out_k[0, 0].numel()))))
         del out_k, out_p
 
         pts, _, rays_d, z_vals = ray_marcher(requests[1][:CHUNK], N_SAMPLES)
@@ -569,7 +1064,12 @@ def main():
             replaces="mvsnerf_tpu/ops/pallas_sweep.py:258",
             max_abs_err=max_err(colors, colors_p), tol=TOL_K4,
             ms=cuda_ms(lambda: color_warp(*k4)),
-            plain_ms=cuda_ms(lambda: color_warp_plain(*k4))))
+            plain_ms=cuda_ms(lambda: color_warp_plain(*k4)),
+            library_ms=None,
+            # per sample and view: the projection (~30) and 4 bilinear
+            # taps of 3 channels
+            **bound(nbytes(*k4, colors),
+                    pts[..., 0].numel() * len(w2cs) * (30 + 4 * 3 * 2))))
 
         inv_scale = torch.tensor([W - 1.0, H - 1.0], device=dev)
         ndc = get_ndc_coordinate(w2cs[0], intrs[0], pts, inv_scale,
@@ -584,16 +1084,15 @@ def main():
             replaces="mvsnerf_tpu/ops/pallas_render_tiled.py:313",
             max_abs_err=max_err(r_k, r_p), tol=TOL_K6,
             ms=cuda_ms(lambda: render_v0(*k6)),
-            plain_ms=cuda_ms(lambda: render_v0_plain(*k6))))
+            plain_ms=cuda_ms(lambda: render_v0_plain(*k6)),
+            library_ms=None,
+            **bound(nbytes(*k6[:4], *r_k.values()) +
+                    touched_volume_bytes(volume, k6[0]),
+                    mlp_flops(k6[0][..., 0].numel()))))
         print(f"   K6 inputs: acc mean {float(r_p['acc'].mean()):.4f}, "
               f"rgb std {float(r_p['rgb'].std()):.4f}")
         del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p
-    for k in kernels:
-        print(f"[3 kernel] {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
-              f"(tol {k['tol']:.1e}), kernel {k['ms']:.3f} ms, plain "
-              f"{k['plain_ms']:.3f} ms")
-        check(k["max_abs_err"] <= k["tol"],
-              f"{k['name']} disagrees with its plain twin", failures)
+    report(3, kernels, failures)
     torch.cuda.empty_cache()
 
     # ---- 4. the slice, counting kernel launches
@@ -671,6 +1170,10 @@ def main():
     # ---- 6. fine-tune
     torch.cuda.empty_cache()
     kernels += finetune_phase(dev, mlp, mvsnet, failures)
+
+    # ---- 7. generalizable training
+    torch.cuda.empty_cache()
+    kernels += generalizable_phase(dev, mlp, mvsnet, failures)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

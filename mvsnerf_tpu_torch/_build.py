@@ -1,15 +1,15 @@
 """Build and bind the hand-written CUDA kernels under csrc/.
 
-At first use, every csrc/*.cu is compiled by nvcc into one shared library
-with a plain C interface,
+At first use, each csrc/*.cu is compiled by its own nvcc, all at once,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
-         -o _build/libmvsnerf_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o <obj> csrc/<name>.cu
 
-and loaded with ctypes. The file name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a built one is reused. Every C
-entry point takes its pointers and the CUDA stream as `void*` and returns
+and the objects are linked into one shared library with a plain C
+interface (`nvcc -shared -o _build/libmvsnerf_kernels_<hash>.so`), loaded
+with ctypes. The file name carries a hash of the sources and flags, so an
+edited kernel is rebuilt and a built one is reused. Every C entry point
+takes its pointers and the CUDA stream as `void*` and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -28,13 +29,17 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     # srcs, proj, depths, out, V, h, w, C, D, pad, stream
     "sweep_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # g and its (channel, plane, row, column) strides, srcs, proj, depths,
+    # gsrc, V, h, w, C, D, pad, stream
+    "sweep_cost_volume_bwd": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _P],
     # pts, w2cs, intrinsics, imgs, out, M, V, H, W, stream
     "color_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ndc, z, colors, dirs, vol, weights, out, N, S, D, HP, WP,
@@ -64,9 +69,45 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _build(srcs, so: Path) -> str:
+    """Compile every source with its own nvcc, all started together, and
+    link the objects into `so`; returns the compilers' output."""
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        log = ""
+        failed = []
+        for src, proc in zip(srcs, procs):
+            out = proc.communicate()[0]
+            log += f"== {src.name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        if not failed:
+            lib = tmp / "lib.so"
+            proc = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode})")
+            else:
+                os.replace(lib, so)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+        return log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call; a fresh build leaves the
-    compiler's output, ptxas's per-kernel register and spill report
+    compilers' output, ptxas's per-kernel register and spill report
     included, in `build_log`."""
     global _lib, build_log
     if _lib is not None:
@@ -78,16 +119,7 @@ def library() -> ctypes.CDLL:
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libmvsnerf_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, srcs)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
+        build_log = _build(srcs, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

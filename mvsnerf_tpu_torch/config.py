@@ -5,6 +5,8 @@ mvsnerf_tpu/config.py, on plain argparse.
 command line. The JAX package's TPU-only implementation switches are
 parsed, so the same command lines work, and do nothing here: the port has
 one implementation of each path. Setting one prints a line saying so.
+`--device` is the port's own: the CLIs run on the CUDA card unless it says
+`cpu`, and raise when there is no card.
 """
 
 from __future__ import annotations
@@ -118,6 +120,10 @@ def config_parser(cmd=None):
     add("--ckpt_every", type=int, default=20000)
     add("--val_every", type=int, default=0)
     add("--scan_list", type=str, default="")
+
+    # the port's own
+    add("--device", type=str, default="cuda",
+        help="cuda (default; raises without a card) or cpu")
 
     if isinstance(cmd, str):
         cmd = shlex.split(cmd)

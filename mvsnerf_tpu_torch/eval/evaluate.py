@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import set_precision_policy
+from .. import resolve_device, set_precision_policy
 from ..models.mvsnet import N_DEPTH_PLANES
 from ..render.hybrid import make_hybrid_renderer
 from ..render.renderer import make_chunked_renderer
@@ -31,7 +31,8 @@ class Evaluator:
         n_planes: sweep planes (the reference's 128).
         white_bkgd: composite onto white (Blender scenes).
         chunk: rays per render chunk (both modes).
-        device: where the scene's tensors live.
+        device: where the scene's tensors live: CUDA unless the caller
+            names the CPU; with no card it raises.
     """
 
     def __init__(self, mvsnet, mlp, n_samples: int = 128, pad: int = 24,
@@ -41,7 +42,7 @@ class Evaluator:
         self.mvsnet, self.mlp = mvsnet, mlp
         self.n_samples, self.pad, self.n_planes = n_samples, pad, n_planes
         self.white_bkgd, self.chunk = white_bkgd, chunk
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.renderers = None
 
     def _tensor(self, a):

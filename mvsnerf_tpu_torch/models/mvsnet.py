@@ -3,8 +3,7 @@ and the MVSNet plane-sweep pipeline.
 
 Counterpart of mvsnerf_tpu/models/mvsnet.py with its dense layout. The
 convolutions run on cuDNN (float32, TF32 off; see the package docstring);
-the U-Net runs in `torch.channels_last_3d`, the layout the sweep kernel
-writes. The TPU-only packed variants (featurenet_packed.py,
+the 3-D U-Net runs in NCDHW, the layout the sweep kernel writes. The TPU-only packed variants (featurenet_packed.py,
 costreg_packed.py) have no counterpart here.
 """
 
@@ -82,7 +81,9 @@ class CostRegNet(nn.Module):
         y = conv4 + self.conv7(y)
         y = conv2 + self.conv9(y)
         y = conv0 + self.conv11(y)
-        return y[:, :, :d0, :h0, :w0]
+        # crop only what was padded: the backward of a slice, even a whole
+        # one, fills a zero tensor and copies the gradient into it
+        return y[:, :, :d0, :h0, :w0] if any(pads) else y
 
 
 def depth_plane_values(near, far, n_planes: int = N_DEPTH_PLANES,
@@ -104,8 +105,9 @@ class MVSNet(nn.Module):
         self.cost_reg_2 = CostRegNet(41, device=device)
 
     def forward(self, imgs, proj_mats, near_far, pad: int = 0,
-                n_planes: int = N_DEPTH_PLANES):
-        """Build the neural encoding volume (mvsnet_apply, dense layout).
+                n_planes: int = N_DEPTH_PLANES, lindisp: bool = False):
+        """Build the neural encoding volume (mvsnet_apply, dense layout),
+        differentiable in the parameters (through K2 on a card).
 
         Args:
             imgs: (V, H, W, 3) normalised source images, view 0 = reference.
@@ -113,15 +115,19 @@ class MVSNet(nn.Module):
                 view 0.
             near_far: (2,) reference-view depth range.
             pad: cost-volume padding in feature pixels.
+            lindisp: sweep planes linear in disparity (`--use_disp`).
         Returns:
             volume (D, hp, wp, 8) channel-last, depth_values (D,).
         """
         feats = self.feature(imgs)
         depth_values = depth_plane_values(near_far[0], near_far[1], n_planes,
-                                          device=imgs.device)
+                                          lindisp, device=imgs.device)
         cost = build_cost_volume(imgs, feats, proj_mats, depth_values,
                                  pad=pad)
-        # (D, hp, wp, 41) -> (1, 41, D, hp, wp): a channels_last_3d view of
-        # the sweep's output, no copy
+        # (D, hp, wp, 41) -> (1, 41, D, hp, wp): the sweep's contiguous
+        # output itself, no copy
         volume = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None])
-        return volume[0].permute(1, 2, 3, 0).contiguous(), depth_values
+        # squeeze, not [0]: a view both ways (select's backward would fill
+        # and copy a 150 MB gradient at DTU size)
+        return volume.squeeze(0).permute(1, 2, 3, 0).contiguous(), \
+            depth_values

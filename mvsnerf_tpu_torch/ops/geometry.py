@@ -52,6 +52,26 @@ def rays_from_pixels(xs, ys, intrinsic, c2w):
     return c2w[:3, 3], dirs @ c2w[:3, :3].T
 
 
+def sample_random_pixels(h: int, w: int, n: int,
+                         generator: torch.Generator | None = None,
+                         device=None):
+    """(xs, ys), each (n,): uniform random INTEGER pixel coordinates as
+    float32 (utils.py:89-93; mvsnerf_tpu/ops/geometry.py:90-105 without
+    the precrop), drawn from `generator` (x first, then y)."""
+    if generator is not None:
+        device = generator.device
+    xs = torch.randint(0, w, (n,), generator=generator, device=device)
+    ys = torch.randint(0, h, (n,), generator=generator, device=device)
+    return xs.float(), ys.float()
+
+
+def full_image_pixels(h: int, w: int, device=None):
+    """All pixel coordinates (xs, ys), each (h*w,), row-major
+    (utils.py:94-99)."""
+    grid = pixel_grid(h, w, device)
+    return grid[..., 0].reshape(-1), grid[..., 1].reshape(-1)
+
+
 def get_ndc_coordinate(w2c_ref, intrinsic_ref, point_samples, inv_scale,
                        near, far, pad: int = 0, lindisp: bool = False):
     """World points -> reference-view NDC in [0, 1].

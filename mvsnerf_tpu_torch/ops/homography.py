@@ -18,7 +18,8 @@ __all__ = ["build_cost_volume", "plane_sweep_pix_coords"]
 
 def build_cost_volume(imgs, feats, proj_mats, depth_values, pad: int = 0):
     """Cross-view variance cost volume with warped source RGB
-    (models.py:839-893, `build_volume_costvar_img`), dense layout.
+    (models.py:839-893, `build_volume_costvar_img`), dense layout,
+    differentiable in `feats` and `imgs` (through K2 on a card).
 
     Args:
         imgs: (V, H, W, 3) source images at full resolution (view 0 = ref).
@@ -29,8 +30,8 @@ def build_cost_volume(imgs, feats, proj_mats, depth_values, pad: int = 0):
     Returns:
         cost (D, hp, wp, 3V + C) channel-last, channels [ref RGB, warped src
         RGB x (V-1), variance(C)], the mask count normalised per view. It is
-        a view of the sweep's channels_last_3d (1, 3V + C, D, hp, wp)
-        tensor: `cost.permute(3, 0, 1, 2)[None]` is that tensor, no copy.
+        a view of the sweep's contiguous (1, 3V + C, D, hp, wp) tensor:
+        `cost.permute(3, 0, 1, 2)[None]` is that tensor, no copy.
     """
     _, h, w, C = feats.shape
     # images to feature resolution (models.py:859, align_corners=False)
@@ -39,4 +40,4 @@ def build_cost_volume(imgs, feats, proj_mats, depth_values, pad: int = 0):
     srcs = torch.cat([feats, imgs_l], dim=-1).contiguous()
     cost = sweep_cost_volume(srcs, proj_mats.contiguous(),
                              depth_values.contiguous(), pad, C)
-    return cost[0].permute(1, 2, 3, 0)
+    return cost.squeeze(0).permute(1, 2, 3, 0)

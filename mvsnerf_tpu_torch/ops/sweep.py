@@ -1,17 +1,26 @@
-"""K1: the fused plane sweep + variance cost volume, and its plain twin.
+"""K1: the fused plane sweep + variance cost volume; K2, its backward; and
+their plain twins.
 
-`sweep_cost_volume` launches csrc/sweep.cu for CUDA tensors and runs the
-plain PyTorch twin `sweep_cost_volume_plain` for CPU tensors; any other
-device raises. Both return the (1, 3V+C, D, hp, wp) cost volume in
-`torch.channels_last_3d` memory (physically (D, hp, wp, 3V+C)), channels
-[ref RGB, src RGB x (V-1), variance(C)], which CostRegNet's first conv3d
-reads without a copy. This output layout is the port of the TPU relayout
-kernel K3 (`pack16_from_tiles`, pallas_sweep2.py:418): the sweep writes
-the U-Net's layout itself.
+`sweep_cost_volume` is, for CUDA tensors, a `torch.autograd.Function`
+over csrc/sweep.cu: K1 forward, K2 backward (the gradient of every
+channel of every source view, the reference view's included). For CPU
+tensors it runs the plain PyTorch twin `sweep_cost_volume_plain` under
+plain autograd; any other device raises. Both return the (1, 3V+C, D, hp,
+wp) cost volume contiguous (NCDHW), channels [ref RGB, src RGB x (V-1),
+variance(C)]: the layout cuDNN runs the f32 3-D U-Net in, so CostRegNet's
+first conv3d reads it without a relayout. This store is the port of the
+TPU relayout kernel K3 (`pack16_from_tiles`, pallas_sweep2.py:418): the
+sweep writes the U-Net's layout itself, and K2 reads the cotangent
+through its strides in whatever layout the U-Net's backward leaves
+(NCDHW on the training path), so K3's cotangent direction
+(`unpack16_to_tiles`, pallas_sweep2.py:487) needs no pass of its own.
 
-Replaces mvsnerf_tpu/ops/pallas_sweep2.py:316 `cost_volume_xband_pallas`
-and its fallback pallas_sweep.py:504 `cost_volume_fused_pallas`. What
-bounds it on the H100: the 4 B x (3V+C) per-voxel output write.
+K1 replaces mvsnerf_tpu/ops/pallas_sweep2.py:316 `cost_volume_xband_pallas`
+and its fallback pallas_sweep.py:504 `cost_volume_fused_pallas`; K2 their
+backward kernels (`_xb_bwd_kernel` pallas_sweep2.py:210, `_fused_bwd_kernel`
+pallas_sweep.py:432). What bounds them on the H100: the 4 B x (3V+C)
+per-voxel output write (K1) and cotangent read (K2); K2 also issues f32
+atomic adds into the source gradients.
 """
 
 from __future__ import annotations
@@ -63,8 +72,7 @@ def sweep_cost_volume_plain(srcs, proj_mats, depth_values, pad: int,
     vsum = ref[None, ..., :C]
     vsq = vsum ** 2
     count = torch.ones((D, hp, wp), device=srcs.device)
-    out = torch.empty((1, 3 * V + C, D, hp, wp), device=srcs.device,
-                      memory_format=torch.channels_last_3d)
+    out = torch.empty((1, 3 * V + C, D, hp, wp), device=srcs.device)
     dense = out[0].permute(1, 2, 3, 0)                  # (D, hp, wp, 3V+C)
     dense[..., 0:3] = ref[None, ..., C:C + 3]
     for v in range(1, V):
@@ -83,27 +91,22 @@ def sweep_cost_volume_plain(srcs, proj_mats, depth_values, pad: int,
     return out
 
 
-def sweep_cost_volume(srcs, proj_mats, depth_values, pad: int,
-                      c_feat: int):
-    """The cost volume from per-view [feat | rgb] sources.
+def sweep_cost_volume_bwd_plain(g, srcs, proj_mats, depth_values, pad: int,
+                                c_feat: int):
+    """Plain twin of K2: autograd of `sweep_cost_volume_plain`, the
+    (V, h, w, c_feat + 3) gradient of `srcs` for the cost cotangent `g`."""
+    with torch.enable_grad():
+        s = srcs.detach().requires_grad_()
+        out = sweep_cost_volume_plain(s, proj_mats, depth_values, pad, c_feat)
+        return torch.autograd.grad(out, s, g)[0]
 
-    Args:
-        srcs: (V, h, w, c_feat + 3) float32 channel-last sources at feature
-            resolution, view 0 = reference.
-        proj_mats: (V, 3, 4) relative projections (row 0 unused).
-        depth_values: (D,) sweep-plane depths.
-        pad: symmetric feature-grid padding.
-    Returns:
-        (1, 3V + c_feat, D, hp, wp) float32, channels_last_3d.
-    """
-    if srcs.device.type == "cpu":
-        return sweep_cost_volume_plain(srcs, proj_mats, depth_values, pad,
-                                       c_feat)
-    if srcs.device.type != "cuda":
-        raise ValueError(f"sweep_cost_volume: no kernel for {srcs.device}")
+
+def _check_args(srcs, proj_mats, depth_values, pad, c_feat):
     V, h, w, cs = srcs.shape
-    D = depth_values.shape[0]
     dev = srcs.device
+    if dev.type != "cuda":
+        raise ValueError(f"sweep kernel: tensors on {dev}, not a CUDA "
+                         f"device")
     if c_feat != 32 or cs != c_feat + 3 or V < 2:
         raise ValueError(f"sweep kernel takes (V>=2, h, w, 35) sources with "
                          f"32 feature channels, got {tuple(srcs.shape)}, "
@@ -119,9 +122,16 @@ def sweep_cost_volume(srcs, proj_mats, depth_values, pad: int,
                              f"float32 on {dev}")
     if pad < 0 or h < 2 or w < 2:
         raise ValueError(f"sweep kernel: bad pad {pad} or size {h}x{w}")
-    hp, wp = h + 2 * pad, w + 2 * pad
-    out = torch.empty((1, 3 * V + c_feat, D, hp, wp), device=dev,
-                      memory_format=torch.channels_last_3d)
+
+
+def sweep_cost_volume_kernel(srcs, proj_mats, depth_values, pad: int,
+                             c_feat: int):
+    """K1 on the card (no autograd): the cost volume of `sweep_cost_volume`."""
+    _check_args(srcs, proj_mats, depth_values, pad, c_feat)
+    V, h, w, _ = srcs.shape
+    D = depth_values.shape[0]
+    out = torch.empty((1, 3 * V + c_feat, D, h + 2 * pad, w + 2 * pad),
+                      device=srcs.device)
     srcp = proj_mats[1:].contiguous()
     rc = library().sweep_cost_volume(
         srcs.data_ptr(), srcp.data_ptr(), depth_values.data_ptr(),
@@ -131,4 +141,76 @@ def sweep_cost_volume(srcs, proj_mats, depth_values, pad: int,
     return out
 
 
-sweep_cost_volume.launches = 0
+def sweep_cost_volume_bwd_kernel(g, srcs, proj_mats, depth_values, pad: int,
+                                 c_feat: int):
+    """K2 on the card: the (V, h, w, c_feat + 3) gradient of `srcs` for the
+    (1, 3V + c_feat, D, hp, wp) cost cotangent `g`, every channel of every
+    view. K3's cotangent direction has no pass of its own: the kernel
+    reads `g` through its strides, where the U-Net's backward leaves it
+    (NCDHW, channels_last_3d, or expanded), without a copy."""
+    _check_args(srcs, proj_mats, depth_values, pad, c_feat)
+    V, h, w, cs = srcs.shape
+    D = depth_values.shape[0]
+    shape = (1, 3 * V + c_feat, D, h + 2 * pad, w + 2 * pad)
+    if tuple(g.shape) != shape or g.dtype != torch.float32 or \
+            g.device != srcs.device:
+        raise ValueError(f"sweep backward kernel: cotangent "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}, "
+                         f"expected {shape} float32 on {srcs.device}")
+    g_srcs = torch.zeros((V, h, w, cs), device=srcs.device)
+    srcp = proj_mats[1:].contiguous()
+    rc = library().sweep_cost_volume_bwd(
+        g.data_ptr(), *g.stride()[1:], srcs.data_ptr(), srcp.data_ptr(),
+        depth_values.data_ptr(), g_srcs.data_ptr(), V, h, w, c_feat, D, pad,
+        stream_of(srcs))
+    check(rc, "sweep_cost_volume_bwd")
+    sweep_cost_volume.bwd_launches += 1
+    return g_srcs
+
+
+class _SweepCostVolume(torch.autograd.Function):
+    """K1 forward, K2 backward. Saves only the sources, projections and
+    depths: K2 recomputes the warps."""
+
+    @staticmethod
+    def forward(ctx, srcs, proj_mats, depth_values, pad, c_feat):
+        ctx.save_for_backward(srcs, proj_mats, depth_values)
+        ctx.pad, ctx.c_feat = pad, c_feat
+        return sweep_cost_volume_kernel(srcs, proj_mats, depth_values, pad,
+                                        c_feat)
+
+    @staticmethod
+    def backward(ctx, g):
+        srcs, proj_mats, depth_values = ctx.saved_tensors
+        g_srcs = None
+        if ctx.needs_input_grad[0]:
+            g_srcs = sweep_cost_volume_bwd_kernel(
+                g, srcs, proj_mats, depth_values, ctx.pad, ctx.c_feat)
+        # the sweep coordinates get no gradient, as in JAX
+        return g_srcs, None, None, None, None
+
+
+def sweep_cost_volume(srcs, proj_mats, depth_values, pad: int,
+                      c_feat: int):
+    """The cost volume from per-view [feat | rgb] sources, differentiable
+    in `srcs`.
+
+    Args:
+        srcs: (V, h, w, c_feat + 3) float32 channel-last sources at feature
+            resolution, view 0 = reference.
+        proj_mats: (V, 3, 4) relative projections (row 0 unused).
+        depth_values: (D,) sweep-plane depths.
+        pad: symmetric feature-grid padding.
+    Returns:
+        (1, 3V + c_feat, D, hp, wp) float32, contiguous (NCDHW).
+    """
+    if srcs.device.type == "cpu":
+        return sweep_cost_volume_plain(srcs, proj_mats, depth_values, pad,
+                                       c_feat)
+    if srcs.device.type != "cuda":
+        raise ValueError(f"sweep_cost_volume: no kernel for {srcs.device}")
+    return _SweepCostVolume.apply(srcs, proj_mats, depth_values, pad, c_feat)
+
+
+sweep_cost_volume.launches = 0      # K1 forward launches
+sweep_cost_volume.bwd_launches = 0  # K2 launches

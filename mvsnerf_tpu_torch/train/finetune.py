@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from .. import set_precision_policy
+from .. import resolve_device, set_precision_policy
 from ..io.checkpoint import latest_checkpoint, load_checkpoint, \
     save_checkpoint
 from ..io.torch_ckpt import load_reference_checkpoint
@@ -62,8 +62,9 @@ class FinetuneSystem:
     `all_rays` and `all_rgbs` serves as the training dataset; a validation
     dataset also needs `len()` and items with `rays` and `rgbs` images.
 
-    On a CUDA device the step runs the hand-written kernels; on the CPU
-    their plain PyTorch versions.
+    It runs on the CUDA card unless `device="cpu"` is passed (and raises
+    with no card). On the card the step runs the hand-written kernels; on
+    the CPU their plain PyTorch versions.
     """
 
     def __init__(self, args, dataset_train, dataset_val=None, device=None):
@@ -72,9 +73,7 @@ class FinetuneSystem:
         self.args = args
         self.train_dataset = dataset_train
         self.val_dataset = dataset_val
-        self.device = torch.device(device if device is not None else "cpu")
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"FinetuneSystem: no route for {self.device}")
+        self.device = resolve_device(device)
 
         ckpt_volume = None
         if args.ckpt and os.path.exists(args.ckpt):

@@ -6,7 +6,8 @@ with the same flags:
         --datadir /data/dtu/scan1 --expname scan1-ft --with_rgb_loss \\
         --ckpt /path/mvsnerf-v0.tar --batch_size 1024 --pad 24
 
-Runs on the first CUDA device when there is one, else on the CPU. Writes
+Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
+`--device cpu` it raises). Writes
 `runs_fine_tuning/<expname>/metrics.csv` (train loss/PSNR, val PSNR) and
 snapshots under `runs_fine_tuning/<expname>/ckpts/`, and resumes from the
 newest of them by default. SSIM and the image panels are not ported yet.
@@ -16,8 +17,7 @@ from __future__ import annotations
 
 import os
 
-import torch
-
+from . import resolve_device
 from .config import config_parser
 from .data.dtu_ft import DTUFTDataset
 from .train.finetune import FinetuneSystem, psnr
@@ -31,7 +31,7 @@ def main(argv=None):
     if args.dataset_name not in DATASETS:
         raise NotImplementedError(f"--dataset_name {args.dataset_name}: "
                                   f"only {sorted(DATASETS)} is ported")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(args.device)
     log_dir = os.path.join("runs_fine_tuning", args.expname or "exp")
     logger = MetricLogger(log_dir)
 

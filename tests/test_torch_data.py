@@ -113,7 +113,7 @@ def test_train_finetune_cli_writes_and_resumes(scan, tmp_path, monkeypatch,
     argv = ["--dataset_name", "dtu_ft", "--datadir", scan, "--expname",
             "cli", "--with_rgb_loss", "--imgScale_train", "0.1",
             "--imgScale_test", "0.1", "--pad", "4", "--N_samples", "8",
-            "--batch_size", "64", "--max_steps"]
+            "--batch_size", "64", "--device", "cpu", "--max_steps"]
     main(argv + ["2"])
     run = tmp_path / "runs_fine_tuning/cli"
     assert sorted(os.listdir(run / "ckpts")) == ["ckpt_000000002.pt"]

@@ -360,7 +360,7 @@ def test_msgpack_snapshots_are_refused(case, tmp_path):
     path = tmp_path / "ckpt_000000001.msgpack"
     path.write_bytes(b"")
     with pytest.raises(NotImplementedError):
-        FinetuneSystem(_port_args(str(path)), case["scene"])
+        FinetuneSystem(_port_args(str(path)), case["scene"], device="cpu")
 
 
 def test_config_matches_jax_flags_and_names_tpu_switches(capsys):
@@ -369,6 +369,8 @@ def test_config_matches_jax_flags_and_names_tpu_switches(capsys):
     cmd = ("--dataset_name dtu_ft --with_rgb_loss --pad 4 --decay_step 10 "
            "20 --mlp_impl pallas --volume_gather_impl pallas2 --N_samples 64")
     ours, ref = vars(config_parser(cmd)), vars(jax_parser(cmd))
+    # the port's own flag: the card unless the command line says cpu
+    assert ours.pop("device") == "cuda"
     assert ours == ref
     out = capsys.readouterr().out
     assert "--mlp_impl pallas" in out and "--volume_gather_impl" in out

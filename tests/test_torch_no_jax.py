@@ -37,6 +37,9 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.train.common",
     "mvsnerf_tpu_torch.train.finetune",
     "mvsnerf_tpu_torch.train_finetune",
+    "mvsnerf_tpu_torch.data.dtu",
+    "mvsnerf_tpu_torch.train.generalizable",
+    "mvsnerf_tpu_torch.train_mvs_nerf",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -128,7 +128,8 @@ def test_slice_weight_routes_agree(case, port, tmp_path):
 def test_evaluator_rejects_bad_requests(case):
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
     mlp, mvsnet = port_modules(*case["params"])
-    ev = Evaluator(mvsnet, mlp, n_samples=8, pad=case["pad"], n_planes=8)
+    ev = Evaluator(mvsnet, mlp, n_samples=8, pad=case["pad"], n_planes=8,
+                   device="cpu")
     with pytest.raises(RuntimeError):
         ev.render(case["ref"]["rays"], 16, 16)
     ev.build_volume(case["imgs_norm"], case["projs"], NEAR_FAR,
@@ -155,7 +156,7 @@ def test_evaluator_white_background(case, port):
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
     mlp, mvsnet = port_modules(*case["params"])
     ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=case["pad"],
-                   n_planes=case["n_planes"], white_bkgd=True)
+                   n_planes=case["n_planes"], white_bkgd=True, device="cpu")
     ev.build_volume(case["imgs_norm"], case["projs"], NEAR_FAR,
                     {"w2cs": case["w2cs"],
                      "intrinsics": np.stack([case["intr"]] * 3)})

@@ -81,19 +81,20 @@ def test_sweep_twin_matches_jax_pallas_interpret():
 
 
 def test_cost_volume_feeds_costregnet_without_copy():
-    """K3's port: the sweep writes the U-Net's channels_last_3d layout, so
-    the (1, 41, D, hp, wp) view needs no relayout."""
+    """K3's port: the sweep writes the layout cuDNN runs the 3-D U-Net in
+    (NCDHW), so the (1, 41, D, hp, wp) tensor needs no relayout and
+    build_cost_volume's (D, hp, wp, 41) view of it permutes back to it."""
     from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume
     srcs = torch.randn(3, 12, 16, 35, generator=torch.Generator()
                        .manual_seed(0))
     projs = t(_scene()[2])
     cost = sweep_cost_volume(srcs, projs, torch.linspace(2, 5, 8), 2, 32)
     assert cost.shape == (1, 41, 8, 16, 20)
-    assert cost.is_contiguous(memory_format=torch.channels_last_3d)
-    same = cost.contiguous(memory_format=torch.channels_last_3d)
+    assert cost.is_contiguous()
+    same = cost.contiguous()
     assert same.data_ptr() == cost.data_ptr()
     dense = cost[0].permute(1, 2, 3, 0)
-    assert dense.is_contiguous()
+    assert dense.permute(3, 0, 1, 2)[None].is_contiguous()
 
 
 def test_mvsnet_cost_input_is_the_sweep_output(monkeypatch):
@@ -103,7 +104,7 @@ def test_mvsnet_cost_input_is_the_sweep_output(monkeypatch):
     orig = m.CostRegNet.forward
 
     def spy(self, x):
-        seen["cl3d"] = x.is_contiguous(memory_format=torch.channels_last_3d)
+        seen["ncdhw"] = x.is_contiguous()
         seen["ptr"] = x.data_ptr()
         return orig(self, x)
 
@@ -124,7 +125,7 @@ def test_mvsnet_cost_input_is_the_sweep_output(monkeypatch):
         vol, _ = net(imgs, projs, torch.tensor([2.0, 5.0]), pad=4,
                      n_planes=8)
     assert vol.shape == (8, 16, 20, 8)
-    assert seen["cl3d"] and seen["ptr"] == seen["cost_ptr"]
+    assert seen["ncdhw"] and seen["ptr"] == seen["cost_ptr"]
 
 
 def test_sweep_wrapper_rejects_other_devices():
