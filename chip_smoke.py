@@ -5,7 +5,9 @@
 
 Drives the port's paths at DTU scale on synthetic 640x512 scenes made
 from a seed, with seeded random weights: no-finetune inference, the
-per-scene fine-tune step and the generalizable training step.
+per-scene fine-tune step and the generalizable training step, the last
+also with the U-Net on the hand-written K10 kernels (`--costreg_impl
+dband`).
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -46,7 +48,18 @@ per-scene fine-tune step and the generalizable training step.
      against the step with the module's MLP, and with cuDNN's autotuner;
      (e) `torch.profiler` over 2 steps: device busy share, time by stage
      and each stage's largest kernels, and that no operation copied a
-     cost-volume-sized tensor (the U-Net reads K1's output in place).
+     cost-volume-sized tensor (the U-Net reads K1's output in place);
+  8. the dband route, phase 7's configuration with `--costreg_impl dband`:
+     (a) each K10 kernel (conv3d_fwd at stride 1 and 2, conv3d_up,
+     conv3d_wgrad) against its plain twin on the inputs one step gives it,
+     layer by layer in each direction (forward, dgrad, wgrad), with
+     CUDA-event times of the kernel, the twin and cuDNN's call; (b) one
+     step's gradients on K10 against a float64 run of the twins; (c) 12
+     steps of `fit` (launch counters reset just before), timed over the
+     last 10, next to phase 7's; (d) `Evaluator(costreg_impl="dband")
+     .build_volume` against the cuDNN route's volume; (e) the profile of
+     2 steps: no library convolution in the U-Net's stages, no
+     cost-volume-sized copy.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -102,6 +115,32 @@ TOL_K2 = 1e-5
 # kinks: the float32 twins take the other side of some of them too.
 TOL_GEN_GRAD = 5.0
 GEN_WARM, GEN_TIMED, GEN_AB = 2, 10, 3
+# phase 8, the dband route (K10) at phase 7's configuration. Forward and
+# dgrad against the twin: x (1 + max|twin|). The weight gradient sums up to
+# 4.7M products in another order than the twin's: held to a float64 run of
+# the twin by TOL_K7_BWD's rule.
+TOL_K10 = 1e-5
+# the U-Net's layers in the order of its forward
+K10_LAYERS = (("conv0", "s1"), ("conv1", "s2"), ("conv2", "s1"),
+              ("conv3", "s2"), ("conv4", "s1"), ("conv5", "s2"),
+              ("conv6", "s1"), ("conv7", "up"), ("conv9", "up"),
+              ("conv11", "up"))
+# K10 launches per dband step: conv3d_fwd at stride 1 (4 forward + 4
+# dgrad) and stride 2 (3 forward + the 3 up layers' dgrad), conv3d_up (3
+# forward + the 3 s2 layers' dgrad), conv3d_wgrad (10)
+K10_PER_STEP = {"s1": 8, "s2": 6, "up": 6, "wgrad": 10}
+# launch key -> entry name and the TPU kernel it replaces (the wgrad entry
+# replaces _s1_wgrad_dband :597 and _s2_wgrad_dband :707)
+K10_ENTRIES = {
+    "s1": ("K10 conv3d_s1", "mvsnerf_tpu/ops/pallas_costreg.py:210"),
+    "s2": ("K10 conv3d_s2", "mvsnerf_tpu/ops/pallas_costreg.py:337"),
+    "up": ("K10 conv3d_up", "mvsnerf_tpu/ops/pallas_costreg.py:480"),
+    "wgrad": ("K10 conv3d_wgrad", "mvsnerf_tpu/ops/pallas_costreg.py:597")}
+# convolution kernels of a library (cuDNN's fprop, dgrad and wgrad engines)
+# by name fragment, not cuBLAS's GEMMs ("xmma_gemm"); K10's own names
+# contain "conv3d_" or "wgrad_reduce"
+CONV_LIBRARY_NAMES = ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                      "winograd")
 
 
 def require(cond, msg):
@@ -671,23 +710,147 @@ def step_groups(kernels):
     return groups
 
 
-def generalizable_phase(dev, mlp, mvsnet, failures):
-    """Phase 7; returns the K2 entry of the kernels line."""
+def twin_routes(twins):
+    """A context in which the sweep (K1, K2) and K10 run their plain twins
+    in place of their kernels when `twins`."""
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops import homography
+    from mvsnerf_tpu_torch.ops import sweep as k12
+    stack = contextlib.ExitStack()
+    if twins:
+        stack.enter_context(swapped(homography, "sweep_cost_volume",
+                                    k12.sweep_cost_volume_plain))
+        for name, plain in (("conv3d_fwd", k10.conv3d_fwd_plain),
+                            ("conv3d_up_op", k10.conv3d_up_plain),
+                            ("conv3d_wgrad", k10.conv3d_wgrad_plain)):
+            stack.enter_context(swapped(k10, name, plain))
+    return stack
+
+
+def step_grads(system, state0, batch, draws, twins, f64=False):
+    """A generalizable step's loss at `state0` for `draws` and the MLP's,
+    CostRegNet's and FeatureNet's gradients: on the kernels, or on the
+    twins (in float64 when `f64`). Also the K2 and K10 launches it made."""
+    import torch
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops import sweep as k12
+    mv = system.mvsnet
+    parts = {"MLP": system.mlp, "CostRegNet": mv.cost_reg_2,
+             "FeatureNet": mv.feature}
+    system.load_state(state0)
+    b, d = batch, draws
+    if f64:
+        torch.set_default_dtype(torch.float64)
+        system.mlp.double()
+        mv.double()
+        b = {key: val.double() for key, val in batch.items()}
+        d = tuple(t.double() for t in draws)
+    try:
+        system.optimizer.zero_grad(set_to_none=True)
+        launched = k12.sweep_cost_volume.bwd_launches
+        k10_before = dict(k10.launches)
+        with twin_routes(twins):
+            loss, aux = system.loss(b, *d, twins=twins)
+            loss.backward()
+        missing = [n for n, q in mv.named_parameters() if q.grad is None]
+        require(not missing, f"no gradient for {missing}")
+        return dict(
+            loss=float(loss.detach()),
+            depth=float(aux["depth_loss"].detach()),
+            k2=k12.sweep_cost_volume.bwd_launches - launched,
+            k10={key: n - k10_before[key] for key, n in k10.launches.items()},
+            **{n: torch.cat([q.grad.reshape(-1).double()
+                             for q in m.parameters()])
+               for n, m in parts.items()})
+    finally:
+        if f64:
+            torch.set_default_dtype(torch.float32)
+            system.mlp.float()
+            mv.float()
+
+
+def report_step_grads(phase, n_rays, k, k_again, p, p64, failures):
+    """Hold one step's gradients on the kernels (`k`, and `k_again` from
+    the same state) to a float64 run of the twins (`p64`): per part at
+    most TOL_GEN_GRAD x the float32 twins' (`p`) own distance."""
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    print(f"[{phase} step] one step's gradients from one state ({n_rays} "
+          f"rays): loss kernels {k['loss']:.7f} / twins {p['loss']:.7f} / "
+          f"twins in float64 {p64['loss']:.7f} (rel {loss_rel:.2e}, tol "
+          f"1e-5; depth loss {k['depth']:.5f})")
+    for n in ("MLP", "CostRegNet", "FeatureNet"):
+        g64 = float(p64[n].abs().max())
+        err = {"kernels vs twins": max_err(k[n], p[n]),
+               "kernels run-to-run": max_err(k[n], k_again[n]),
+               "twins vs float64": max_err(p[n], p64[n]),
+               "kernels vs float64": max_err(k[n], p64[n])}
+        tol = TOL_GEN_GRAD * max(err["twins vs float64"], 1e-6 * g64)
+        print(f"   {n}: max|g| {g64:.3e}; " + ", ".join(
+            f"{key} {e:.2e}" for key, e in err.items()) +
+            f" (tol {tol:.2e})")
+        check(err["kernels vs float64"] <= tol,
+              f"the kernel step's {n} gradient is further from float64 "
+              f"than {TOL_GEN_GRAD} x the twin step's", failures)
+    check(loss_rel <= 1e-5, "the kernel and twin steps' losses disagree",
+          failures)
+
+
+def profile_steps(phase, system, sample, gen, failures):
+    """`torch.profiler` over 2 steps (with their batch copies): device time
+    by group (`step_groups`), and a check that no operation copied a
+    cost-volume-sized tensor. Returns the groups, or None when the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            b = system.batch(sample)
+            system._step(b, *system.draw(b, gen))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = sorted(
+        ((e.time_range.start, e.name, e.time_range.elapsed_us())
+         for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and
+         not getattr(e, "is_user_annotation", False) and
+         not e.name.startswith("Optimizer.")), key=lambda t: t[0])
+    cost_shape = [1, 41, N_PLANES, H // 4 + 2 * PAD, W // 4 + 2 * PAD]
+    copies = [e.name for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                            "aten::_to_copy") and
+              cost_shape in (getattr(e, "input_shapes", None) or [])]
+    print(f"[{phase} profile] operations copying a {tuple(cost_shape)} "
+          f"tensor: {copies}")
+    check(not copies, "the step copies the cost volume or its cotangent",
+          failures)
+    total = sum(us for _, _, us in events)
+    if total == 0:
+        print(f"[{phase} profile] the profiler saw no device time")
+        return None
+    print(f"[{phase} profile] 2 steps: device busy {total / 1e3:.2f} of "
+          f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f} %); "
+          f"per step {total / 2e3:.2f} ms of kernels")
+    groups = step_groups([(n, us) for _, n, us in events])
+    for grp, names in groups.items():
+        us = sum(names.values())
+        print(f"   {grp}: {us / 2e3:.3f} ms/step ({100 * us / total:.1f} %)")
+        for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
+            print(f"      {t / 2e3:8.3f}  {name[:100]}")
+    return groups
+
+
+def generalizable_system(dev, mlp, mvsnet, extra=""):
+    """A `GeneralizableSystem` from a reference-format checkpoint of the
+    seeded weights at bench.py's generalizable configuration, with `extra`
+    flags."""
     import tempfile
 
     import torch
     from mvsnerf_tpu_torch.config import config_parser
-    from mvsnerf_tpu_torch.ops import homography
-    from mvsnerf_tpu_torch.ops import mlp_train as k7
-    from mvsnerf_tpu_torch.ops import sweep as k12
-    from mvsnerf_tpu_torch.ops import volume_gather as k5
-    from mvsnerf_tpu_torch.ops.color_warp import color_warp
-    from mvsnerf_tpu_torch.ops.geometry import sample_random_pixels
-    from mvsnerf_tpu_torch.render import renderer
     from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
-
-    t0 = time.perf_counter()
-    sample = generalizable_sample(np.random.default_rng(SEED + 3))
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "seeded.tar")
         torch.save({"global_step": 0,
@@ -696,8 +859,25 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
         args = config_parser(
             f"--dataset_name dtu --pad {PAD} --N_samples {N_SAMPLES} "
             f"--batch_size {GEN_BATCH} --with_depth_loss --with_depth "
-            f"--net_type v0 --ckpt {ckpt}")
-        system = GeneralizableSystem(args, device=dev)
+            f"--net_type v0 --ckpt {ckpt} {extra}")
+        return GeneralizableSystem(args, device=dev)
+
+
+def generalizable_phase(dev, mlp, mvsnet, failures):
+    """Phase 7; returns the K2 entry of the kernels line and
+    generalizable_train_step_ms."""
+    import torch
+    from mvsnerf_tpu_torch.ops import homography
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import sweep as k12
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.geometry import sample_random_pixels
+    from mvsnerf_tpu_torch.render import renderer
+
+    t0 = time.perf_counter()
+    sample = generalizable_sample(np.random.default_rng(SEED + 3))
+    system = generalizable_system(dev, mlp, mvsnet)
     batch = system.batch(sample)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     print(f"[7 generalizable] {GEN_VIEWS} views of {H}x{W}, batch "
@@ -777,47 +957,9 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
     draws = (xs[keep], ys[keep], u[keep])
     del margin, xs, ys, u
     state0 = copy.deepcopy(system.state())
-    mv = system.mvsnet
-    parts = {"MLP": system.mlp, "CostRegNet": mv.cost_reg_2,
-             "FeatureNet": mv.feature}
 
-    def sweep_twin(twins):
-        """The sweep's plain twin in place of K1/K2 when `twins`."""
-        if not twins:
-            return contextlib.nullcontext()
-        return swapped(homography, "sweep_cost_volume",
-                       k12.sweep_cost_volume_plain)
-
-    def step_grads(twins, f64=False):
-        """The loss at state0 for the draws and each part's gradient."""
-        system.load_state(state0)
-        b, d = batch, draws
-        if f64:
-            torch.set_default_dtype(torch.float64)
-            system.mlp.double()
-            mv.double()
-            b = {key: val.double() for key, val in batch.items()}
-            d = tuple(t.double() for t in draws)
-        try:
-            system.optimizer.zero_grad(set_to_none=True)
-            launched = k12.sweep_cost_volume.bwd_launches
-            with sweep_twin(twins):
-                loss, aux = system.loss(b, *d, twins=twins)
-                loss.backward()
-            missing = [n for n, q in mv.named_parameters() if q.grad is None]
-            require(not missing, f"no gradient for {missing}")
-            return dict(
-                loss=float(loss.detach()),
-                depth=float(aux["depth_loss"].detach()),
-                k2=k12.sweep_cost_volume.bwd_launches - launched,
-                **{n: torch.cat([q.grad.reshape(-1).double()
-                                 for q in m.parameters()])
-                   for n, m in parts.items()})
-        finally:
-            if f64:
-                torch.set_default_dtype(torch.float32)
-                system.mlp.float()
-                mv.float()
+    def grads(twins, f64=False):
+        return step_grads(system, state0, batch, draws, twins, f64)
 
     # the layout the U-Net's backward hands K2 on the real path
     seen = []
@@ -828,30 +970,10 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
         return bwd_kernel(g_cost, *rest)
 
     with swapped(k12, "sweep_cost_volume_bwd_kernel", noting_layout):
-        k = step_grads(False)
-    k_again, p, p64 = step_grads(False), step_grads(True), \
-        step_grads(True, f64=True)
-    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    print(f"[7 step] one step's gradients from one state ({len(keep)} "
-          f"rays): loss kernels {k['loss']:.7f} / twins {p['loss']:.7f} / "
-          f"twins in float64 {p64['loss']:.7f} (rel {loss_rel:.2e}, tol "
-          f"1e-5; depth loss {k['depth']:.5f}); K2 launches {k['k2']} / "
-          f"{p['k2']}; cotangent at K2 in {seen}")
-    for n in parts:
-        g64 = float(p64[n].abs().max())
-        err = {"kernels vs twins": max_err(k[n], p[n]),
-               "kernels run-to-run": max_err(k[n], k_again[n]),
-               "twins vs float64": max_err(p[n], p64[n]),
-               "kernels vs float64": max_err(k[n], p64[n])}
-        tol = TOL_GEN_GRAD * max(err["twins vs float64"], 1e-6 * g64)
-        print(f"   {n}: max|g| {g64:.3e}; " + ", ".join(
-            f"{key} {e:.2e}" for key, e in err.items()) +
-            f" (tol {tol:.2e})")
-        check(err["kernels vs float64"] <= tol,
-              f"the kernel step's {n} gradient is further from float64 "
-              f"than {TOL_GEN_GRAD} x the twin step's", failures)
-    check(loss_rel <= 1e-5, "the kernel and twin steps' losses disagree",
-          failures)
+        k = grads(False)
+    k_again, p, p64 = grads(False), grads(True), grads(True, f64=True)
+    report_step_grads(7, len(keep), k, k_again, p, p64, failures)
+    print(f"   K2 launches {k['k2']} / {p['k2']}; cotangent at K2 in {seen}")
     check(seen == [path_layout],
           f"K2 got {seen} in the step, not (a)'s {path_layout}", failures)
     check(k["k2"] == 1 and p["k2"] == 0 and
@@ -861,7 +983,7 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
     del state0, k, k_again, p, p64
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with sweep_twin(True):
+    with twin_routes(True):
         for _ in range(3):
             system._step(batch, *draws, twins=True)
     torch.cuda.synchronize()
@@ -933,44 +1055,335 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
     # ---- (e) device time of 2 steps (with their batch copies) by group,
     # and the operations that copied a cost-volume-sized tensor (none: the
     # U-Net reads K1's output, and K2 its cotangent, in place)
-    from torch.profiler import ProfilerActivity, profile
+    profile_steps(7, system, sample, gen, failures)
+    return [entry], step_ms
+
+
+def k10_taps(n_out, n_in, stride, up=False):
+    """Valid (output, tap) pairs along one axis of a 3-tap convolution with
+    pad 1: i = stride o + k - 1 in [0, n_in); for the transposed stride-2
+    one, o = 2 i - 1 + k."""
+    o, k = np.arange(n_out)[:, None], np.arange(3)[None]
+    if up:
+        j = o + 1 - k
+        return int(((j % 2 == 0) & (j >= 0) & (j // 2 < n_in)).sum())
+    i = stride * o + k - 1
+    return int(((i >= 0) & (i < n_in)).sum())
+
+
+def k10_call_bound(op, args, out):
+    """`bound` of one K10 call: its inputs and output once over the memory
+    rate, and 2 x the multiply-adds its taps inside the volume need."""
+    a, b, third = args
+    if op == "conv3d_wgrad":   # (g, x, stride) -> (A, B, 3, 3, 3)
+        taps = [k10_taps(n, m, third) for n, m in zip(a.shape[2:],
+                                                       b.shape[2:])]
+        macs = a.shape[1] * b.shape[1]
+    elif op == "conv3d_up_op":  # (x, w (Cin, Cout, ..), size)
+        taps = [k10_taps(n, m, 2, up=True) for n, m in zip(out.shape[2:],
+                                                           a.shape[2:])]
+        macs = b.shape[0] * b.shape[1]
+    else:                       # conv3d_fwd (x, w (Cout, Cin, ..), stride)
+        taps = [k10_taps(n, m, third) for n, m in zip(out.shape[2:],
+                                                       a.shape[2:])]
+        macs = b.shape[0] * b.shape[1]
+    return bound(nbytes(a, b, out), 2 * macs * math.prod(taps))
+
+
+def record_k10_calls(system, batch, draws):
+    """The K10 operations of one dband step in call order, with their
+    inputs: [(direction, op name, args)], direction 'forward' during the
+    loss and 'backward' during its backward."""
+    import torch
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    calls, where = [], ["forward"]
+
+    def recording(name):
+        fn = getattr(k10, name)
+
+        def op(*args):
+            calls.append((where[0], name, tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args)))
+            return fn(*args)
+        return op
+
+    with contextlib.ExitStack() as stack:
+        for name in ("conv3d_fwd", "conv3d_up_op", "conv3d_wgrad"):
+            stack.enter_context(swapped(k10, name, recording(name)))
+        system.optimizer.zero_grad(set_to_none=True)
+        loss, _ = system.loss(batch, *draws)
+        where[0] = "backward"
+        loss.backward()
+    system.optimizer.zero_grad(set_to_none=True)
+    return calls
+
+
+def k10_layer_calls(calls, net):
+    """The recorded calls by layer: {layer: {"forward" | "dgrad" | "wgrad":
+    (op, args)}}, checked against the U-Net's structure: the forward in
+    layer order, the backward in reverse with each layer's dgrad before its
+    wgrad, each forward on the layer's own weight."""
+    fwd = [c for c in calls if c[0] == "forward"]
+    bwd = [c for c in calls if c[0] == "backward"]
+    require(len(fwd) == 10 and len(bwd) == 20,
+            f"{len(fwd)} forward and {len(bwd)} backward K10 calls in a "
+            f"step, not 10 and 20")
+    dgrad_op = {"s1": ("conv3d_fwd", 1), "s2": ("conv3d_up_op", None),
+                "up": ("conv3d_fwd", 2)}
+    out = {}
+    for i, (layer, kind) in enumerate(K10_LAYERS):
+        mod = getattr(net, layer)
+        weight = mod.conv.weight if kind != "up" else mod[0].weight
+        f = fwd[i]
+        d, w = bwd[2 * (9 - i)], bwd[2 * (9 - i) + 1]
+        op, stride = dgrad_op[kind]
+        ok = (f[1] == ("conv3d_up_op" if kind == "up" else "conv3d_fwd") and
+              f[2][1].data_ptr() == weight.data_ptr() and d[1] == op and
+              (stride is None or d[2][2] == stride) and
+              w[1] == "conv3d_wgrad" and
+              w[2][2] == (1 if kind == "s1" else 2))
+        require(ok, f"K10 calls of {layer} ({kind}) out of the expected "
+                    f"order: {f[1]}, {d[1]}, {w[1]}")
+        out[layer] = {"forward": f[1:], "dgrad": d[1:], "wgrad": w[1:]}
+    return out
+
+
+def k10_library_call(kind, direction, rec):
+    """The one cuDNN call computing the same function as a layer's K10
+    call in `direction` (TF32 off): F.conv3d / F.conv_transpose3d, or
+    aten.convolution_backward for the gradients."""
+    import torch
+    import torch.nn.functional as F
+    x, w = rec["forward"][1][:2]
+    gy = rec["dgrad"][1][0]
+    stride = 1 if kind == "s1" else 2
+    if direction == "forward":
+        if kind == "up":
+            return lambda: F.conv_transpose3d(x, w, stride=2, padding=1,
+                                              output_padding=1)
+        return lambda: F.conv3d(x, w, stride=stride, padding=1)
+    mask = [direction == "dgrad", direction == "wgrad", False]
+    up = kind == "up"
+    return lambda: torch.ops.aten.convolution_backward(
+        gy, x, w, None, [stride] * 3, [1] * 3, [1] * 3, up,
+        [1 if up else 0] * 3, 1, mask)
+
+
+def k10_kernel_entries(system, batch, draws, failures):
+    """Phase 8a: each K10 kernel against its plain twin on the inputs one
+    dband step gives it, layer by layer and direction by direction, with
+    CUDA-event times of the kernel, the twin and cuDNN's call, and the
+    bound; the four entries of the kernels line, summed over the step."""
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    kernel_of = {"conv3d_fwd": k10.conv3d_fwd_kernel,
+                 "conv3d_up_op": k10.conv3d_up_kernel,
+                 "conv3d_wgrad": k10.conv3d_wgrad_kernel}
+    plain_of = {"conv3d_fwd": k10.conv3d_fwd_plain,
+                "conv3d_up_op": k10.conv3d_up_plain,
+                "conv3d_wgrad": k10.conv3d_wgrad_plain}
+    layers = k10_layer_calls(record_k10_calls(system, batch, draws),
+                             system.mvsnet.cost_reg_2)
+    sums = {key: dict(max_abs_err=0.0, tol=0.0, ratio=-1.0, ms=0.0,
+                      plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      by={"bytes": 0.0, "operations": 0.0})
+            for key in K10_ENTRIES}
+    for layer, kind in K10_LAYERS:
+        rec = layers[layer]
+        for direction in ("forward", "dgrad", "wgrad"):
+            op, args = rec[direction]
+            key = {"conv3d_fwd": f"s{args[2]}", "conv3d_up_op": "up",
+                   "conv3d_wgrad": "wgrad"}[op]
+            out_k = kernel_of[op](*args)
+            out_p = plain_of[op](*args)
+            err = max_err(out_k, out_p)
+            if op == "conv3d_wgrad":
+                ref = plain_of[op](*(a.double() if hasattr(a, "double")
+                                     else a for a in args))
+                tol = TOL_K7_BWD * max(max_err(out_p.double(), ref),
+                                       1e-6 * float(ref.abs().max()))
+                del ref
+            else:
+                tol = TOL_K10 * (1 + float(out_p.abs().max()))
+            b = k10_call_bound(op, args, out_k)
+            times = [cuda_ms(lambda: kernel_of[op](*args)),
+                     cuda_ms(lambda: plain_of[op](*args)),
+                     cuda_ms(k10_library_call(kind, direction, rec))]
+            print(f"[8 kernel] {layer} {direction} ({key}, "
+                  f"{'x'.join(map(str, args[0].shape[1:]))} -> "
+                  f"{'x'.join(map(str, out_k.shape[1:]))}): max_abs_err "
+                  f"{err:.3e} (tol {tol:.1e}), kernel {times[0]:.3f} ms, "
+                  f"plain {times[1]:.3f} ms, cuDNN {times[2]:.3f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            check(err <= tol, f"K10 {key} disagrees with its twin on "
+                              f"{layer} {direction}", failures)
+            s = sums[key]
+            if err / tol > s["ratio"]:
+                s.update(max_abs_err=err, tol=tol, ratio=err / tol)
+            for name, t in zip(("ms", "plain_ms", "library_ms"), times):
+                s[name] += t
+            s["bound_ms"] += b["bound_ms"]
+            s["by"][b["bound_by"]] += b["bound_ms"]
+            del out_k, out_p
+    entries = []
+    for key, (name, replaces) in K10_ENTRIES.items():
+        s = sums[key]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="mvsnerf_tpu_torch/csrc/conv3d.cu", replaces=replaces,
+            max_abs_err=s["max_abs_err"], tol=s["tol"], ms=s["ms"],
+            plain_ms=s["plain_ms"], library_ms=s["library_ms"],
+            bound_ms=s["bound_ms"],
+            bound_by=max(s["by"], key=s["by"].get)))
+        print(f"[8 kernel] {name}, summed over one step's "
+              f"{K10_PER_STEP[key]} calls: kernel {s['ms']:.3f} ms, plain "
+              f"{s['plain_ms']:.3f} ms, cuDNN {s['library_ms']:.3f} ms, "
+              f"bound {s['bound_ms']:.4f} ms; worst max_abs_err "
+              f"{s['max_abs_err']:.3e} (tol {s['tol']:.1e})")
+    return entries
+
+
+def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
+                cudnn_volume):
+    """Phase 8: the generalizable step and the volume build with the U-Net
+    on K10 (`--costreg_impl dband`); returns K10's entries of the kernels
+    line."""
+    import torch
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import sweep as k12
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+
+    t0 = time.perf_counter()
+    sample = generalizable_sample(np.random.default_rng(SEED + 3))
+    system = generalizable_system(dev, mlp, mvsnet, "--costreg_impl dband")
+    require(system.mvsnet.cost_reg_2.impl == "dband",
+            "--costreg_impl dband did not reach the U-Net")
+    batch = system.batch(sample)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    print(f"[8 dband] phase 7's configuration with --costreg_impl dband; "
+          f"set up in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) each kernel against its twin on one step's inputs
+    draws = system.draw(batch, gen)
+    entries = k10_kernel_entries(system, batch, draws, failures)
+    torch.cuda.empty_cache()
+
+    # ---- (b) one step's gradients on K10 against the twins in float64
+    from mvsnerf_tpu_torch.ops.geometry import sample_random_pixels
+    xs, ys = sample_random_pixels(*batch["images"].shape[1:3],
+                                  16 * GEN_BATCH, gen)
+    u = torch.rand((len(xs), N_SAMPLES), generator=gen, device=dev)
+    margin = k7.relu_margin(system.mlp, system.mlp_input(batch, xs, ys, u))
+    keep = torch.nonzero(margin.reshape(len(xs), -1).amin(1) > KINK)[:, 0]
+    require(len(keep) >= GEN_BATCH // 4,
+            f"only {len(keep)} of {len(xs)} rays clear of the ReLU kinks")
+    keep = keep[:GEN_BATCH]
+    draws = (xs[keep], ys[keep], u[keep])
+    del margin, xs, ys, u
+    state0 = copy.deepcopy(system.state())
+    k, k_again, p, p64 = (
+        step_grads(system, state0, batch, draws, twins, f64)
+        for twins, f64 in ((False, False), (False, False), (True, False),
+                           (True, True)))
+    report_step_grads(8, len(keep), k, k_again, p, p64, failures)
+    print(f"   K10 launches in the kernel step {k['k10']}, in the twin "
+          f"step {p['k10']}")
+    check(k["k10"] == K10_PER_STEP and not any(p["k10"].values()),
+          f"K10 launched {k['k10']} / {p['k10']} times in one step, not "
+          f"{K10_PER_STEP} / none", failures)
+    system.load_state(state0)
+    del state0, k, k_again, p, p64
+
+    # ---- (c) the main path: fit, launch counters reset just before
+    counters = {"K1 sweep_cost_volume": (k12.sweep_cost_volume, "launches"),
+                "K2 sweep_cost_volume (bwd)": (k12.sweep_cost_volume,
+                                               "bwd_launches"),
+                "K4 color_warp": (color_warp, "launches"),
+                "K5 volume_gather (fwd)": (k5.sample_volume, "launches"),
+                "K5 volume_splat (bwd)": (k5.sample_volume, "bwd_launches"),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    for key in k10.launches:
+        k10.launches[key] = 0
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = GEN_WARM + GEN_TIMED
+    losses = system.fit([sample], num_epochs=n_steps, logger=clock,
+                        seed=SEED, log_every=GEN_WARM)
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    k10_launches = dict(k10.launches)
+    step_ms = (clock.marks[n_steps] - clock.marks[GEN_WARM]) * 1e3 / GEN_TIMED
+    print(f"[8 fit] {len(losses)} steps on dband, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; steps {GEN_WARM + 1}-{n_steps}: "
+          f"generalizable_train_step_ms {step_ms:.2f} (cuDNN U-Net, phase "
+          f"7: {cudnn_step_ms:.2f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K10 "
+          f"launches {k10_launches}; others {launches}")
+    check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+          "fit on dband returned a non-finite loss", failures)
+    check(k10_launches == {key: n * n_steps
+                           for key, n in K10_PER_STEP.items()},
+          f"K10 launched {k10_launches} times in {n_steps} steps, not "
+          f"{n_steps} x {K10_PER_STEP}", failures)
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the dband path", failures)
+    for e, key in zip(entries, K10_ENTRIES):
+        e["launches"] = k10_launches[key]
+
+    # ---- (d) the volume build on dband against the cuDNN route's
+    ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD,
+                   n_planes=N_PLANES, chunk=CHUNK, device=dev,
+                   costreg_impl="dband")
+    ev.build_volume(*scene)
+    for key in k10.launches:
+        k10.launches[key] = 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            b = system.batch(sample)
-            system._step(b, *system.draw(b, gen))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = sorted(
-        ((e.time_range.start, e.name, e.time_range.elapsed_us())
-         for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA and
-         not getattr(e, "is_user_annotation", False) and
-         not e.name.startswith("Optimizer.")), key=lambda t: t[0])
-    cost_shape = [1, 41, N_PLANES, H // 4 + 2 * PAD, W // 4 + 2 * PAD]
-    copies = [e.name for e in prof.events()
-              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous",
-                            "aten::_to_copy") and
-              cost_shape in (getattr(e, "input_shapes", None) or [])]
-    print(f"[7 profile] operations copying a {tuple(cost_shape)} tensor: "
-          f"{copies}")
-    check(not copies, "the step copies the cost volume or its cotangent",
+    t0 = time.perf_counter()
+    vol = ev.build_volume(*scene)[0]
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rel = max_err(vol, cudnn_volume) / float(cudnn_volume.abs().max())
+    print(f"[8 volume] Evaluator(costreg_impl='dband').build_volume: "
+          f"{build_ms:.1f} ms, volume {tuple(vol.shape)}, max abs diff from "
+          f"the cuDNN route's / its max {rel:.2e} (tol 1e-4); K10 launches "
+          f"{k10.launches}")
+    check(rel <= 1e-4, "the dband volume disagrees with the cuDNN route's",
           failures)
-    total = sum(us for _, _, us in events)
-    if total == 0:
-        print("[7 profile] the profiler saw no device time")
-        return [entry]
-    print(f"[7 profile] 2 steps: device busy {total / 1e3:.2f} of "
-          f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f} %); "
-          f"per step {total / 2e3:.2f} ms of kernels")
-    for grp, names in step_groups([(n, us) for _, n, us in events]).items():
-        us = sum(names.values())
-        print(f"   {grp}: {us / 2e3:.3f} ms/step ({100 * us / total:.1f} %)")
-        for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
-            print(f"      {t / 2e3:8.3f}  {name[:100]}")
-    return [entry]
+    check(k10.launches == {"s1": 4, "s2": 3, "up": 3, "wgrad": 0},
+          f"the dband volume build launched K10 {k10.launches} times",
+          failures)
+    del ev, vol
+
+    # ---- (e) device time of 2 dband steps by group; no convolution
+    # library kernel in the U-Net's stages and no cost-volume copy
+    groups = profile_steps(8, system, sample, gen, failures)
+    if groups is not None:
+        stray = sorted({name for grp in ("CostRegNet fwd", "CostRegNet bwd")
+                        for name in groups[grp]
+                        if "conv3d_" not in name and
+                        "wgrad_reduce" not in name and
+                        any(f in name.lower() for f in CONV_LIBRARY_NAMES)})
+        k10_us = {}
+        for grp in ("CostRegNet fwd", "CostRegNet bwd"):
+            mine = {name: us for name, us in groups[grp].items()
+                    if "conv3d_" in name or "wgrad_reduce" in name}
+            k10_us[grp] = sum(mine.values())
+            print(f"[8 profile] {grp}: K10 {k10_us[grp] / 2e3:.3f} of "
+                  f"{sum(groups[grp].values()) / 2e3:.3f} ms/step")
+            for name, us in sorted(mine.items(), key=lambda kv: -kv[1]):
+                print(f"      {us / 2e3:8.3f}  {name[:100]}")
+        print(f"[8 profile] convolution library kernels in the U-Net's "
+              f"stages: {stray}")
+        check(not stray, "a library convolution ran in the dband U-Net",
+              failures)
+        check(all(k10_us.values()), "the profile shows no K10 kernel in "
+                                    "the U-Net's stages", failures)
+    return entries
 
 
 def main():
@@ -1173,7 +1586,13 @@ def main():
 
     # ---- 7. generalizable training
     torch.cuda.empty_cache()
-    kernels += generalizable_phase(dev, mlp, mvsnet, failures)
+    entries, cudnn_step_ms = generalizable_phase(dev, mlp, mvsnet, failures)
+    kernels += entries
+
+    # ---- 8. the dband route: the U-Net on K10
+    torch.cuda.empty_cache()
+    kernels += dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms,
+                           (imgs_norm, projs, NEAR_FAR, pose_src), volume)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

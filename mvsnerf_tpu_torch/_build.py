@@ -55,6 +55,16 @@ SIGNATURES = {
     "mlp_v0_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # N -> floats of scratch mlp_v0_bwd needs
     "mlp_v0_scratch_floats": [_I],
+    # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stride, stream
+    "conv3d_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stream
+    "conv3d_up": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # A, B, Dg, Hg, Wg -> rows of the partial buffer conv3d_wgrad needs
+    "conv3d_wgrad_splits": [_I, _I, _I, _I, _I],
+    # g, x, partial, dw, A, B, Dg, Hg, Wg, Dx, Hx, Wx, stride, n_splits,
+    # stream
+    "conv3d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
 }
 RESTYPES = {"mlp_v0_scratch_floats": ctypes.c_longlong}  # else c_int
 

@@ -5,6 +5,10 @@ mvsnerf_tpu/config.py, on plain argparse.
 command line. The JAX package's TPU-only implementation switches are
 parsed, so the same command lines work, and do nothing here: the port has
 one implementation of each path. Setting one prints a line saying so.
+`--costreg_impl` is the exception: `dband` runs the CostRegNet U-Net's
+convolutions on the hand-written K10 kernels (ops/costreg_conv.py), and
+the other values on cuDNN (`packed`, a TPU layout, prints a line saying
+so).
 `--device` is the port's own: the CLIs run on the CUDA card unless it says
 `cpu`, and raise when there is no card.
 """
@@ -16,7 +20,7 @@ import shlex
 
 # TPU-only switches of the JAX package: flag -> default
 TPU_ONLY = {
-    "warp_mode": "auto", "costreg_impl": "auto", "featurenet_impl": "auto",
+    "warp_mode": "auto", "featurenet_impl": "auto",
     "color_warp_mode": "auto", "volume_gather_impl": "auto",
     "eval_gather": "auto", "mlp_impl": "auto", "precision": "float32",
 }
@@ -55,11 +59,15 @@ def config_parser(cmd=None):
     add("--fixed_sources", action="store_true")
     add("--lpips_weights", type=str, default="lpips_vgg.npz")
 
-    # TPU-only implementation switches: parsed, ignored
+    # TPU-only implementation switches: parsed, ignored (but for
+    # --costreg_impl dband)
     add("--warp_mode", type=str, default="auto",
         choices=["auto", "pallas", "packed", "banded", "gather"])
     add("--costreg_impl", type=str, default="auto",
-        choices=["auto", "packed", "plain", "dband"])
+        choices=["auto", "packed", "plain", "dband"],
+        help="CostRegNet convolutions: 'dband' = the hand-written K10 "
+             "kernels (ops/costreg_conv.py); 'auto', 'plain' and 'packed' "
+             "= cuDNN ('packed' is a TPU layout of the JAX package)")
     add("--featurenet_impl", type=str, default="auto",
         choices=["auto", "packed", "plain"])
     add("--color_warp_mode", type=str, default="auto",
@@ -147,4 +155,7 @@ def config_parser(cmd=None):
         if getattr(args, flag) != default:
             print(f"--{flag} {getattr(args, flag)}: a TPU-only switch of "
                   f"the JAX package; the port ignores it")
+    if args.costreg_impl == "packed":
+        print("--costreg_impl packed: a TPU layout of the JAX package; the "
+              "port runs the U-Net on cuDNN")
     return args

@@ -31,15 +31,20 @@ class Evaluator:
         n_planes: sweep planes (the reference's 128).
         white_bkgd: composite onto white (Blender scenes).
         chunk: rays per render chunk (both modes).
+        costreg_impl: the route of the volume build's U-Net (a
+            `--costreg_impl` value: "dband" for the K10 kernels, the others
+            cuDNN); None keeps the one `mvsnet` was built with.
         device: where the scene's tensors live: CUDA unless the caller
             names the CPU; with no card it raises.
     """
 
     def __init__(self, mvsnet, mlp, n_samples: int = 128, pad: int = 24,
                  n_planes: int = N_DEPTH_PLANES, white_bkgd: bool = False,
-                 chunk: int = 16384, device=None):
+                 chunk: int = 16384, device=None,
+                 costreg_impl: str | None = None):
         set_precision_policy()
         self.mvsnet, self.mlp = mvsnet, mlp
+        self.costreg_impl = costreg_impl
         self.n_samples, self.pad, self.n_planes = n_samples, pad, n_planes
         self.white_bkgd, self.chunk = white_bkgd, chunk
         self.device = resolve_device(device)
@@ -68,7 +73,8 @@ class Evaluator:
         imgs_norm = self._tensor(imgs)
         nf = self._tensor(near_far)
         volume, _ = self.mvsnet(imgs_norm, self._tensor(proj_mats), nf,
-                                pad=self.pad, n_planes=self.n_planes)
+                                pad=self.pad, n_planes=self.n_planes,
+                                costreg_impl=self.costreg_impl)
         pose = {k: self._tensor(pose_source[k])
                 for k in ("w2cs", "intrinsics")}
         imgs01 = unpreprocess_images(imgs_norm)

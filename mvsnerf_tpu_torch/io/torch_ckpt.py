@@ -80,12 +80,13 @@ def state_dicts_from_jax(mlp_params, mvsnet_params):
     return fn_sd, mvs_sd
 
 
-def modules_from_state_dicts(fn_sd, mvs_sd, device=None):
-    """Build the v0 MLP and MVSNet on `device` and load both state dicts
-    strictly."""
+def modules_from_state_dicts(fn_sd, mvs_sd, device=None,
+                             costreg_impl: str = "auto"):
+    """Build the v0 MLP and MVSNet (its U-Net on `costreg_impl`'s route) on
+    `device` and load both state dicts strictly."""
     mlp = MVSNeRF(device=device)
     mlp.load_state_dict(fn_sd, strict=True)
-    mvsnet = MVSNet(device=device)
+    mvsnet = MVSNet(device=device, costreg_impl=costreg_impl)
     mvsnet.load_state_dict(mvs_sd, strict=True)
     return mlp, mvsnet
 
@@ -102,13 +103,15 @@ def volume_from_state(vol_sd):
     return vol_sd["feat_volume"][0].permute(1, 2, 3, 0).float().contiguous()
 
 
-def load_reference_checkpoint(path: str, device=None):
+def load_reference_checkpoint(path: str, device=None,
+                              costreg_impl: str = "auto"):
     """torch.load a reference-format checkpoint -> (MVSNeRF, MVSNet,
-    volume): both modules loaded with strict=True; the fine-tuned (D, h, w,
-    C) volume when the checkpoint holds one, else None."""
+    volume): both modules loaded with strict=True, the MVSNet's U-Net on
+    `costreg_impl`'s route; the fine-tuned (D, h, w, C) volume when the
+    checkpoint holds one, else None."""
     ck = torch.load(path, map_location=device, weights_only=True)
     mlp, mvsnet = modules_from_state_dicts(ck["network_fn_state_dict"],
                                            ck["network_mvs_state_dict"],
-                                           device)
+                                           device, costreg_impl)
     volume = volume_from_state(ck["volume"]) if ck.get("volume") else None
     return mlp, mvsnet, volume

@@ -2,9 +2,12 @@
 and the MVSNet plane-sweep pipeline.
 
 Counterpart of mvsnerf_tpu/models/mvsnet.py with its dense layout. The
-convolutions run on cuDNN (float32, TF32 off; see the package docstring);
-the 3-D U-Net runs in NCDHW, the layout the sweep kernel writes. The TPU-only packed variants (featurenet_packed.py,
-costreg_packed.py) have no counterpart here.
+convolutions run on cuDNN (float32, TF32 off; see the package docstring),
+except the U-Net's on the `dband` route, which run on the hand-written K10
+kernels of ops/costreg_conv.py (`--costreg_impl dband`, the counterpart of
+JAX's `cost_reg_dband_apply`). The 3-D U-Net runs in NCDHW, the layout the
+sweep kernel writes. The TPU-only packed variants (featurenet_packed.py,
+costreg_packed.py) have no counterpart here: `packed` runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -13,10 +16,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.costreg_conv import conv3d_s1, conv3d_s2, conv3d_up
 from ..ops.homography import build_cost_volume
 from .layers import ABN, ConvBnReLU, ConvBnReLU3D
 
 N_DEPTH_PLANES = 128  # hardcoded in the reference (models.py:914)
+# --costreg_impl values: `dband` runs the U-Net's convolutions on K10, the
+# others on cuDNN
+COSTREG_IMPLS = ("auto", "plain", "packed", "dband")
 
 
 class FeatureNet(nn.Module):
@@ -46,10 +53,20 @@ class CostRegNet(nn.Module):
 
     The three stride-2 levels need D, H, W divisible by 8; other sizes are
     zero-padded up to the next multiple of 8 and cropped back, as the JAX
-    `cost_reg_apply` does."""
+    `cost_reg_apply` does.
 
-    def __init__(self, in_channels: int = 41, device=None):
+    `impl` is a `--costreg_impl` value: "dband" runs the ten convolutions
+    on K10 (ops/costreg_conv.py; its kernels take float32 only, like JAX's
+    route, and its CPU twins any float type), the others on cuDNN. Both
+    routes use the same parameters and modules, so the state dict is the
+    same."""
+
+    def __init__(self, in_channels: int = 41, device=None,
+                 impl: str = "auto"):
         super().__init__()
+        if impl not in COSTREG_IMPLS:
+            raise ValueError(f"unknown costreg impl {impl!r}")
+        self.impl = impl
         kw = dict(device=device)
         self.conv0 = ConvBnReLU3D(in_channels, 8, **kw)
         self.conv1 = ConvBnReLU3D(8, 16, stride=2, **kw)
@@ -69,18 +86,32 @@ class CostRegNet(nn.Module):
                                stride=2, bias=False, device=device),
             ABN(cout, device=device))
 
-    def forward(self, x):
+    def forward(self, x, impl: str | None = None):
+        """(1, Cin, D, H, W) -> (1, 8, D, H, W) on the module's route, or
+        on `impl` when given."""
+        impl = impl or self.impl
+        if impl not in COSTREG_IMPLS:
+            raise ValueError(f"unknown costreg impl {impl!r}")
         d0, h0, w0 = x.shape[2:]
         pads = [(-s) % 8 for s in (d0, h0, w0)]
         if any(pads):
             x = F.pad(x, (0, pads[2], 0, pads[1], 0, pads[0]))
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
-        conv4 = self.conv4(self.conv3(conv2))
-        y = self.conv6(self.conv5(conv4))
-        y = conv4 + self.conv7(y)
-        y = conv2 + self.conv9(y)
-        y = conv0 + self.conv11(y)
+        dband = impl == "dband"
+
+        def enc(block, y, conv):
+            return block.bn(conv(y, block.conv.weight)) if dband else block(y)
+
+        def dec(block, y):
+            return block[1](conv3d_up(y, block[0].weight)) if dband \
+                else block(y)
+
+        conv0 = enc(self.conv0, x, conv3d_s1)
+        conv2 = enc(self.conv2, enc(self.conv1, conv0, conv3d_s2), conv3d_s1)
+        conv4 = enc(self.conv4, enc(self.conv3, conv2, conv3d_s2), conv3d_s1)
+        y = enc(self.conv6, enc(self.conv5, conv4, conv3d_s2), conv3d_s1)
+        y = conv4 + dec(self.conv7, y)
+        y = conv2 + dec(self.conv9, y)
+        y = conv0 + dec(self.conv11, y)
         # crop only what was padded: the backward of a slice, even a whole
         # one, fills a zero tensor and copies the gradient into it
         return y[:, :, :d0, :h0, :w0] if any(pads) else y
@@ -99,13 +130,14 @@ class MVSNet(nn.Module):
     """FeatureNet + plane sweep + CostRegNet; state-dict keys `feature.*`
     and `cost_reg_2.*` as in the reference's network_mvs_state_dict."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, costreg_impl: str = "auto"):
         super().__init__()
         self.feature = FeatureNet(device=device)
-        self.cost_reg_2 = CostRegNet(41, device=device)
+        self.cost_reg_2 = CostRegNet(41, device=device, impl=costreg_impl)
 
     def forward(self, imgs, proj_mats, near_far, pad: int = 0,
-                n_planes: int = N_DEPTH_PLANES, lindisp: bool = False):
+                n_planes: int = N_DEPTH_PLANES, lindisp: bool = False,
+                costreg_impl: str | None = None):
         """Build the neural encoding volume (mvsnet_apply, dense layout),
         differentiable in the parameters (through K2 on a card).
 
@@ -116,6 +148,8 @@ class MVSNet(nn.Module):
             near_far: (2,) reference-view depth range.
             pad: cost-volume padding in feature pixels.
             lindisp: sweep planes linear in disparity (`--use_disp`).
+            costreg_impl: the U-Net's route for this call; None keeps the
+                one the module was built with.
         Returns:
             volume (D, hp, wp, 8) channel-last, depth_values (D,).
         """
@@ -126,7 +160,8 @@ class MVSNet(nn.Module):
                                  pad=pad)
         # (D, hp, wp, 41) -> (1, 41, D, hp, wp): the sweep's contiguous
         # output itself, no copy
-        volume = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None])
+        route = {} if costreg_impl is None else {"impl": costreg_impl}
+        volume = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None], **route)
         # squeeze, not [0]: a view both ways (select's backward would fill
         # and copy a 150 MB gradient at DTU size)
         return volume.squeeze(0).permute(1, 2, 3, 0).contiguous(), \

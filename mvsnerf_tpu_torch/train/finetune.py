@@ -82,11 +82,12 @@ class FinetuneSystem:
                     "reading the JAX package's .msgpack snapshots is not "
                     "ported yet")
             self.mlp, self.mvsnet, ckpt_volume = load_reference_checkpoint(
-                args.ckpt, self.device)
+                args.ckpt, self.device, args.costreg_impl)
         else:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(0)
-                mlp, mvsnet = MVSNeRF(), MVSNet()
+                mlp, mvsnet = MVSNeRF(), MVSNet(
+                    costreg_impl=args.costreg_impl)
             self.mlp, self.mvsnet = mlp.to(self.device), \
                 mvsnet.to(self.device)
         self._init_volume(ckpt_volume)

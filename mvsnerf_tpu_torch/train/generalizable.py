@@ -2,7 +2,8 @@
 mvsnerf_tpu/train/generalizable.py, reference train_mvs_nerf_pl.py).
 
 Each step: MVSNet builds the encoding volume from the 3 source views
-(FeatureNet, the K1 sweep, the CostRegNet U-Net), random rays are drawn
+(FeatureNet, the K1 sweep, the CostRegNet U-Net: cuDNN, or the K10 kernels
+with `--costreg_impl dband`), random rays are drawn
 in the target view (the last view), rendered on the training route (K4
 colours, K5 volume fetch, K7 MLP), and supervised with the RGB MSE plus,
 with `--with_depth_loss`, half a SmoothL1 depth loss. The backward runs
@@ -73,11 +74,12 @@ class GeneralizableSystem:
                     "reading the JAX package's .msgpack snapshots is not "
                     "ported yet")
             self.mlp, self.mvsnet, _ = load_reference_checkpoint(
-                args.ckpt, self.device)
+                args.ckpt, self.device, args.costreg_impl)
         else:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(0)
-                mlp, mvsnet = MVSNeRF(), MVSNet()
+                mlp, mvsnet = MVSNeRF(), MVSNet(
+                    costreg_impl=args.costreg_impl)
             self.mlp, self.mvsnet = mlp.to(self.device), \
                 mvsnet.to(self.device)
         self.global_step = 0

@@ -40,6 +40,7 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.data.dtu",
     "mvsnerf_tpu_torch.train.generalizable",
     "mvsnerf_tpu_torch.train_mvs_nerf",
+    "mvsnerf_tpu_torch.ops.costreg_conv",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,7 +78,8 @@ def test_port_never_imports_pil():
 
 
 @pytest.mark.parametrize("module", ["sweep", "color_warp", "render_fused",
-                                    "volume_gather", "mlp_train"])
+                                    "volume_gather", "mlp_train",
+                                    "costreg_conv"])
 def test_kernel_module_imports_without_building(module):
     code = ("import mvsnerf_tpu_torch._build as b\n"
             f"import mvsnerf_tpu_torch.ops.{module}\n"
