@@ -20,10 +20,12 @@ dband`).
      with max abs error and CUDA-event times of kernel and twin;
   4. slice: `Evaluator.build_volume` -> a (128, 176, 208, 8) volume, then
      3 full 640x512 requests at 128 samples, each rendered in 'chunked'
-     and 'hybrid' mode; checks finiteness, hybrid vs chunked rgb, and that
-     every kernel ran in this phase (launch counters reset just before);
+     (K8) and 'hybrid' (K6) mode; checks finiteness, hybrid vs chunked rgb
+     (K6 against K8), and that every kernel ran in this phase (launch
+     counters reset just before);
   5. small-input parity: the same evaluator on a 64x96 toy scene on the
-     card and on the CPU (whose wrappers run the plain twins);
+     card and on the CPU (whose wrappers run the plain twins), in all
+     three render modes;
   6. fine-tune: `FinetuneSystem` from a reference-format checkpoint of the
      same seeded weights, on an in-memory scene of the same rig with 16
      random 640x512 training views (5.2M rays, no files), volume
@@ -59,7 +61,20 @@ dband`).
      last 10, next to phase 7's; (d) `Evaluator(costreg_impl="dband")
      .build_volume` against the cuDNN route's volume; (e) the profile of
      2 steps: no library convolution in the U-Net's stages, no
-     cost-volume-sized copy.
+     cost-volume-sized copy;
+  9. the colour-baked volume and the eval and video entry points: (a) K6b
+     (the baked render) and K8 (PE + MLP + compositing from gathered
+     features) against their twins on one 16384-ray chunk at 128 samples
+     over the baked (128, 176, 208, 20) volume, with the bake's time; (b)
+     `Evaluator` in all three modes, 3 requests each (ms/request, rays/s),
+     the `tiled` request against its twin path on the same baked volume,
+     launches of K4, K6, K6b and K8; (c) `Evaluator.evaluate` on an
+     in-memory DTU-like dataset of 2 views with GT depth, in each mode;
+     (d) `FinetuneSystem --use_color_volume`: K5 forward and backward at
+     C=20 against their twins, one step on the kernels against one on the
+     twins, 36 steps of `fit` timed over the last 30, and no MVSNet
+     parameter in Adam; (e) `render_video`: 3 frames of 640x512 through
+     `render_image` in the `tiled` mode, kept in memory.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -115,6 +130,10 @@ TOL_K2 = 1e-5
 # kinks: the float32 twins take the other side of some of them too.
 TOL_GEN_GRAD = 5.0
 GEN_WARM, GEN_TIMED, GEN_AB = 2, 10, 3
+# phase 9: K6b and K8 against their twins at TOL_K6 (f32 sums in another
+# order, no early stop on either side); the in-memory eval dataset's views
+# and the video's frames
+EVAL_VIEWS, VIDEO_FRAMES = 2, 3
 # phase 8, the dband route (K10) at phase 7's configuration. Forward and
 # dgrad against the twin: x (1 + max|twin|). The weight gradient sums up to
 # 4.7M products in another order than the twin's: held to a float64 run of
@@ -355,9 +374,15 @@ class FinetuneScene:
         self.all_rays = np.concatenate(rays)
         self.all_rgbs = rng.uniform(0, 1, (len(self.all_rays), 3)).astype(
             np.float32)
+        self.c2ws = np.stack([np.linalg.inv(pose(0, 0.01 * off, 0.02 * off))
+                              for off in range(-2, 3)])
 
-    def read_source_views(self):
+    def read_source_views(self, pair_idx=None):
         return self.imgs_norm, self.projs, list(NEAR_FAR), self.pose_source
+
+    def load_poses_all(self):
+        """Camera-to-world poses for the video's `interp` path."""
+        return self.c2ws
 
 
 class StepClock:
@@ -371,22 +396,62 @@ class StepClock:
         self.marks[step] = time.perf_counter()
 
 
-def finetune_phase(dev, mlp, mvsnet, failures):
-    """Phase 6; returns the K5 and K7 entries of the kernels line."""
+def kernel_entry(kernels, name, source, replaces, err, tol, fn_k, fn_p,
+                 fn_lib, n_bytes, flops, **extra):
+    """Append one kernels-line entry: the error against the twin, CUDA-event
+    times of kernel, twin and library call, and the bound."""
+    kernels.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, max_abs_err=err, tol=tol,
+                        ms=cuda_ms(fn_k), plain_ms=cuda_ms(fn_p),
+                        library_ms=fn_lib and cuda_ms(fn_lib),
+                        **bound(n_bytes, flops), **extra))
+
+
+def k5_entries(kernels, v, ndc, gen, suffix=""):
+    """K5's forward and backward against their twins (and one 3-D
+    grid_sample call and its backward, on the NCDHW volume laid out
+    beforehand) on the (D, hp, wp, C) volume `v` at `ndc`."""
+    import torch
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    src5 = "mvsnerf_tpu_torch/csrc/volume_gather.cu"
+    rep5 = "mvsnerf_tpu/ops/pallas_volgather2.py:268"
+    n5, c5 = ndc[..., 0].numel(), v.shape[-1]
+    vol5 = v.permute(3, 0, 1, 2)[None].contiguous()
+    grid5 = (ndc * 2 - 1).reshape(1, -1, 1, 1, 3)
+    f_k, f_p = k5.volume_gather_kernel(v, ndc), \
+        k5.sample_volume_plain(v, ndc)
+    kernel_entry(kernels, f"K5 volume_gather{suffix} (fwd)", src5, rep5,
+                 max_err(f_k, f_p), TOL_K5 * (1 + float(f_p.abs().max())),
+                 lambda: k5.volume_gather_kernel(v, ndc),
+                 lambda: k5.sample_volume_plain(v, ndc),
+                 lambda: torch.nn.functional.grid_sample(
+                     vol5, grid5, mode="bilinear", padding_mode="zeros",
+                     align_corners=True),
+                 touched_volume_bytes(v, ndc) + nbytes(ndc, f_k),
+                 n5 * (30 + 8 * c5 * 2))
+    g5 = torch.randn(f_p.shape, device=v.device, generator=gen)
+    g5_lib = g5.reshape(-1, c5).t().reshape(1, c5, -1, 1, 1).contiguous()
+    b_k = k5.volume_splat_kernel(g5, ndc, v.shape)
+    b_p = k5.volume_splat_plain(g5, ndc, v)
+    v_r = v.clone().requires_grad_()
+    kernel_entry(kernels, f"K5 volume_splat{suffix} (bwd)", src5, rep5,
+                 max_err(b_k, b_p), TOL_K5 * (1 + float(b_p.abs().max())),
+                 lambda: k5.volume_splat_kernel(g5, ndc, v.shape),
+                 grad_only(lambda: k5.sample_volume_plain(v_r, ndc), v_r,
+                           g5),
+                 lambda: torch.ops.aten.grid_sampler_3d_backward(
+                     g5_lib, vol5, grid5, 0, 0, True, [True, False]),
+                 nbytes(g5, ndc, b_k), n5 * (30 + 8 * c5 * 2))
+
+
+def finetune_system(dev, mlp, mvsnet, scene, extra=""):
+    """`FinetuneSystem` on `scene` from a reference-format checkpoint of
+    the seeded weights, at phase 6's flags plus `extra`."""
     import tempfile
 
     import torch
     from mvsnerf_tpu_torch.config import config_parser
-    from mvsnerf_tpu_torch.ops import mlp_train as k7
-    from mvsnerf_tpu_torch.ops import volume_gather as k5
-    from mvsnerf_tpu_torch.ops.color_warp import color_warp
-    from mvsnerf_tpu_torch.ops.render_fused import pack_v0_weights
-    from mvsnerf_tpu_torch.render.renderer import sample_rays
-    from mvsnerf_tpu_torch.train.common import RayBatchIterator
     from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
-
-    t0 = time.perf_counter()
-    scene = FinetuneScene(np.random.default_rng(SEED + 2))
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "seeded.tar")
         torch.save({"global_step": 0,
@@ -394,132 +459,20 @@ def finetune_phase(dev, mlp, mvsnet, failures):
                     "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
         args = config_parser(
             f"--dataset_name dtu_ft --with_rgb_loss --pad {PAD} "
-            f"--batch_size {FT_BATCH} --N_samples {N_SAMPLES} --ckpt {ckpt}")
-        system = FinetuneSystem(args, scene, device=dev)
-    vol = system.volume
-    require(tuple(vol.shape) == (N_PLANES, H // 4 + 2 * PAD,
-                                 W // 4 + 2 * PAD, 8),
-            f"fine-tune volume shape {tuple(vol.shape)}")
-    require(bool(torch.isfinite(vol).all()), "non-finite fine-tune volume")
-    print(f"[6 fine-tune] {len(scene.all_rays)} rays in "
-          f"{FT_VIEWS} views, volume {tuple(vol.shape)}, set up in "
-          f"{time.perf_counter() - t0:.1f} s")
+            f"--batch_size {FT_BATCH} --N_samples {N_SAMPLES} --ckpt {ckpt} "
+            f"{extra}")
+        return FinetuneSystem(args, scene, device=dev)
 
-    # ---- (a) K5 and K7 against their twins at the step's shapes
-    batch = next(RayBatchIterator({"rays": scene.all_rays,
-                                   "rgbs": scene.all_rgbs}, FT_BATCH,
-                                  seed=SEED))
-    rays = torch.from_numpy(batch["rays"]).to(dev)
-    rgbs = torch.from_numpy(batch["rgbs"]).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = []
 
-    def entry(name, source, replaces, err, tol, fn_k, fn_p, fn_lib,
-              n_bytes, flops, **extra):
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, max_abs_err=err, tol=tol,
-                            ms=cuda_ms(fn_k), plain_ms=cuda_ms(fn_p),
-                            library_ms=fn_lib and cuda_ms(fn_lib),
-                            **bound(n_bytes, flops), **extra))
-
-    src5 = "mvsnerf_tpu_torch/csrc/volume_gather.cu"
-    rep5 = "mvsnerf_tpu/ops/pallas_volgather2.py:268"
-    src7 = "mvsnerf_tpu_torch/csrc/mlp_v0_train.cu"
-    rep7 = "mvsnerf_tpu/ops/pallas_mlp.py:318"
-    with torch.no_grad():
-        w2cs = system.pose_source["w2cs"]
-        intrs = system.pose_source["intrinsics"]
-        ndc = sample_rays(
-            rays, N_SAMPLES, w2cs[0], intrs[0], system.imgs.shape[1:3],
-            system.near_far, PAD, perturb=args.perturb,
-            generator=gen)[3].contiguous()
-        v = vol.detach()
-        n5, c5 = ndc[..., 0].numel(), v.shape[-1]
-        # the library call: one 3-D grid_sample (and its backward) on the
-        # NCDHW volume, laid out beforehand
-        vol5 = v.permute(3, 0, 1, 2)[None].contiguous()
-        grid5 = (ndc * 2 - 1).reshape(1, -1, 1, 1, 3)
-        f_k, f_p = k5.volume_gather_kernel(v, ndc), \
-            k5.sample_volume_plain(v, ndc)
-        entry("K5 volume_gather (fwd)", src5, rep5, max_err(f_k, f_p),
-              TOL_K5 * (1 + float(f_p.abs().max())),
-              lambda: k5.volume_gather_kernel(v, ndc),
-              lambda: k5.sample_volume_plain(v, ndc),
-              lambda: torch.nn.functional.grid_sample(
-                  vol5, grid5, mode="bilinear", padding_mode="zeros",
-                  align_corners=True),
-              touched_volume_bytes(v, ndc) + nbytes(ndc, f_k),
-              n5 * (30 + 8 * c5 * 2))
-        g5 = torch.randn(f_p.shape, device=dev, generator=gen)
-        g5_lib = g5.reshape(-1, c5).t().reshape(1, c5, -1, 1, 1).contiguous()
-        b_k = k5.volume_splat_kernel(g5, ndc, v.shape)
-        b_p = k5.volume_splat_plain(g5, ndc, v)
-        v_r = v.clone().requires_grad_()
-        entry("K5 volume_splat (bwd)", src5, rep5, max_err(b_k, b_p),
-              TOL_K5 * (1 + float(b_p.abs().max())),
-              lambda: k5.volume_splat_kernel(g5, ndc, v.shape),
-              grad_only(lambda: k5.sample_volume_plain(v_r, ndc), v_r, g5),
-              lambda: torch.ops.aten.grid_sampler_3d_backward(
-                  g5_lib, vol5, grid5, 0, 0, True, [True, False]),
-              nbytes(g5, ndc, b_k), n5 * (30 + 8 * c5 * 2))
-        del f_k, f_p, g5, g5_lib, b_k, b_p, v_r, vol5, grid5
-
-        x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
-        m = system.mlp
-        packed = pack_v0_weights(m)
-        wt = pack_v0_weights(m, transposed=True)
-        scratch = k7.mlp_v0_scratch(len(x), dev)
-        o_k, o_p = k7.mlp_v0_fwd_kernel(x, packed, scratch), m(x)
-        entry("K7 mlp_v0 (fwd)", src7, rep7, max_err(o_k, o_p),
-              TOL_K7 * (1 + float(o_p.abs().max())),
-              lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
-              lambda: m(x), None, nbytes(x, packed, o_k),
-              mlp_flops(len(x)))
-        # samples at a ReLU kink get a zero cotangent: float32 puts them
-        # on either side of it, and their gradients then differ by design
-        kink7 = k7.relu_margin(m, x) <= KINK
-        g7 = torch.randn(o_p.shape, device=dev, generator=gen) / len(x)
-        g7[kink7] = 0.0
-        dx_k, dw_k = k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch)
-        dx_p, dw_p = k7.mlp_v0_bwd_plain(m, x, g7)
-        dx_64, dw_64 = k7.mlp_v0_bwd_plain(copy.deepcopy(m).double(),
-                                           x.double(), g7.double())
-        f = slice(63, 83)
-
-        def tol64(plain, ref):
-            return TOL_K7_BWD * max(max_err(plain.double(), ref),
-                                    1e-6 * float(ref.abs().max()))
-
-        feat_err = max_err(dx_k[:, f], dx_p[:, f])
-        feat_tol = tol64(dx_p[:, f], dx_64[:, f])
-        zero = float(dx_k[:, :63].abs().max() + dx_k[:, 83:].abs().max())
-        x_r = x.clone().requires_grad_()
-        entry("K7 mlp_v0 (bwd)", src7, rep7, max_err(dw_k, dw_p),
-              tol64(dw_p, dw_64),
-              lambda: k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch),
-              grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7), None,
-              nbytes(g7, x, packed, dx_k, dw_k), mlp_flops(len(x), True),
-              dfeat_max_abs_err=feat_err)
-        print(f"   K7 bwd: {int(kink7.sum())} of {len(x)} samples at a ReLU "
-              f"kink, cotangent zeroed")
-        print(f"   K7 bwd vs float64: dW kernel "
-              f"{max_err(dw_k.double(), dw_64):.3e} / twin "
-              f"{max_err(dw_p.double(), dw_64):.3e} (max |dW| "
-              f"{float(dw_64.abs().max()):.3e}); d feats kernel "
-              f"{max_err(dx_k[:, f].double(), dx_64[:, f]):.3e} / twin "
-              f"{max_err(dx_p[:, f].double(), dx_64[:, f]):.3e} (max "
-              f"{float(dx_64[:, f].abs().max()):.3e})")
-        print(f"   K7 bwd: d feats err {feat_err:.3e} (tol {feat_tol:.1e}), "
-              f"PE / view-direction slices max |dx| {zero} (must be 0)")
-        check(feat_err <= feat_tol, "K7 d feats disagree with the twin",
-              failures)
-        check(zero == 0.0, "K7 returned a non-zero PE / view gradient",
-              failures)
-        del x, x_r, scratch, o_k, o_p, g7, dx_k, dw_k, dx_p, dw_p, dx_64, \
-            dw_64
-    report(6, kernels, failures)
-
-    # ---- (b) one step on the kernels, one on the twins, same state
+def step_parity(phase, system, rays, rgbs, gen, failures):
+    """One step on the kernels and one on the twins from the same state;
+    samples within KINK of a ReLU kink are left out of the volume's
+    gradient check and eps-sized gradients held to Adam's bound. Returns
+    the twins' mean step ms (5 steps), the state restored."""
+    import torch
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    lrate = system.args.lrate
     state0 = copy.deepcopy(system.state(0))
     after = {}
     for twins in (False, True):
@@ -540,8 +493,9 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     x = system.mlp_input(rays, gen)
     kink = (k7.relu_margin(system.mlp, x) <= KINK).float()
     reached = k5.volume_splat_plain(
-        kink.reshape(x.shape[0], x.shape[1], 1).expand(-1, -1, 8)
-        .contiguous(), x[..., :3].contiguous(), system.volume) != 0
+        kink.reshape(x.shape[0], x.shape[1], 1)
+        .expand(-1, -1, system.volume.shape[-1]).contiguous(),
+        x[..., :3].contiguous(), system.volume) != 0
     k, p = after[False], after[True]
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     g_tol = {n: TOL_STEP_GRAD * float(p[f"g_{n}"].abs().max())
@@ -558,14 +512,14 @@ def finetune_phase(dev, mlp, mvsnet, failures):
         g = p[f"g_{n}"].abs()
         firm, still = g > 1e-7, g == 0
         u_err[n] = max_err(k[n][firm], p[n][firm])
-        check(max_err(k[n], p[n]) <= 2 * args.lrate and
+        check(max_err(k[n], p[n]) <= 2 * lrate and
               bool(torch.equal(k[n][still], p[n][still])),
-              f"the kernel step and the plain step update {n} apart",
-              failures)
-    step_tol = STEP_TOL * args.lrate
-    print(f"[6 step] kernels vs twins from one state: loss {k['loss']:.6f}"
-          f" / {p['loss']:.6f} (rel {loss_rel:.2e}, tol 1e-5); gradient "
-          f"max diff volume {g_err['volume']:.2e} (tol "
+              f"[{phase}] the kernel step and the plain step update {n} "
+              "apart", failures)
+    step_tol = STEP_TOL * lrate
+    print(f"[{phase} step] kernels vs twins from one state: loss "
+          f"{k['loss']:.6f} / {p['loss']:.6f} (rel {loss_rel:.2e}, tol "
+          f"1e-5); gradient max diff volume {g_err['volume']:.2e} (tol "
           f"{g_tol['volume']:.1e}; {int(kink.sum())} samples at a ReLU "
           f"kink reach {int(reached.sum())} volume values, left out), MLP "
           f"{g_err['mlp']:.2e} (tol {g_tol['mlp']:.1e}); update max diff "
@@ -573,7 +527,7 @@ def finetune_phase(dev, mlp, mvsnet, failures):
           f"{u_err['mlp']:.2e} (tol {step_tol:.1e})")
     check(loss_rel <= 1e-5 and all(g_err[n] <= g_tol[n] for n in g_err)
           and all(e <= step_tol for e in u_err.values()),
-          "the kernel step and the plain step disagree", failures)
+          f"[{phase}] the kernel step and the plain step disagree", failures)
     system.load_state(state0)
     del state0, after, k, p, x, kink, reached
     torch.cuda.synchronize()
@@ -581,14 +535,14 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     for _ in range(5):
         system._step(rays, rgbs, gen, twins=True)
     torch.cuda.synchronize()
-    plain_step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    return (time.perf_counter() - t0) * 1e3 / 5
 
-    # ---- (c) the main path: fit, launch counters reset just before
-    counters = {"K4 color_warp": (color_warp, "launches"),
-                "K5 volume_gather (fwd)": (k5.sample_volume, "launches"),
-                "K5 volume_splat (bwd)": (k5.sample_volume, "bwd_launches"),
-                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
-                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+
+def timed_fit(phase, system, counters, plain_step_ms, failures):
+    """The main path: `fit` for FT_WARM + FT_TIMED steps, launch counters
+    reset just before, timed over the last FT_TIMED; returns the launches
+    and ms/step."""
+    import torch
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     clock = StepClock()
@@ -599,7 +553,7 @@ def finetune_phase(dev, mlp, mvsnet, failures):
                 for name, (fn, attr) in counters.items()}
     first, last = FT_WARM - 1, FT_WARM + FT_TIMED - 1
     step_ms = (clock.marks[last] - clock.marks[first]) * 1e3 / FT_TIMED
-    print(f"[6 fit] {len(losses)} steps, loss {losses[0]:.5f} -> "
+    print(f"[{phase} fit] {len(losses)} steps, loss {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}; steps {first + 1}-{last}: {step_ms:.2f} "
           f"ms/step, finetune_train_rays_per_sec_per_chip "
           f"{FT_BATCH / step_ms * 1e3:.0f}; plain-twin step "
@@ -608,10 +562,125 @@ def finetune_phase(dev, mlp, mvsnet, failures):
           f"launches {launches}")
     check(len(losses) == FT_WARM + FT_TIMED and
           all(math.isfinite(v) for v in losses),
-          "fit returned a non-finite loss", failures)
+          f"[{phase}] fit returned a non-finite loss", failures)
     for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the fine-tune path",
+        check(n > 0, f"{name} never launched on the phase {phase} fine-tune "
+              "path", failures)
+    return launches, step_ms
+
+
+def first_batch(scene, dev):
+    """The first batch `fit` draws (RayBatchIterator at SEED)."""
+    import torch
+    from mvsnerf_tpu_torch.train.common import RayBatchIterator
+    batch = next(RayBatchIterator({"rays": scene.all_rays,
+                                   "rgbs": scene.all_rgbs}, FT_BATCH,
+                                  seed=SEED))
+    return (torch.from_numpy(batch["rays"]).to(dev),
+            torch.from_numpy(batch["rgbs"]).to(dev))
+
+
+def step_ndc(system, rays, gen):
+    """The step's (N, S, 3) sample NDC for `rays`, jittered from `gen`."""
+    from mvsnerf_tpu_torch.render.renderer import sample_rays
+    return sample_rays(
+        rays, N_SAMPLES, system.pose_source["w2cs"][0],
+        system.pose_source["intrinsics"][0], system.imgs.shape[1:3],
+        system.near_far, PAD, perturb=system.args.perturb,
+        generator=gen)[3].contiguous()
+
+
+def finetune_phase(dev, mlp, mvsnet, failures):
+    """Phase 6; returns the K5 and K7 entries of the kernels line."""
+    import torch
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.render_fused import pack_v0_weights
+
+    t0 = time.perf_counter()
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlp, mvsnet, scene)
+    vol = system.volume
+    require(tuple(vol.shape) == (N_PLANES, H // 4 + 2 * PAD,
+                                 W // 4 + 2 * PAD, 8),
+            f"fine-tune volume shape {tuple(vol.shape)}")
+    require(bool(torch.isfinite(vol).all()), "non-finite fine-tune volume")
+    print(f"[6 fine-tune] {len(scene.all_rays)} rays in "
+          f"{FT_VIEWS} views, volume {tuple(vol.shape)}, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) K5 and K7 against their twins at the step's shapes
+    rays, rgbs = first_batch(scene, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernels = []
+    src7 = "mvsnerf_tpu_torch/csrc/mlp_v0_train.cu"
+    rep7 = "mvsnerf_tpu/ops/pallas_mlp.py:318"
+    with torch.no_grad():
+        k5_entries(kernels, vol.detach(), step_ndc(system, rays, gen), gen)
+        x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
+        m = system.mlp
+        packed = pack_v0_weights(m)
+        wt = pack_v0_weights(m, transposed=True)
+        scratch = k7.mlp_v0_scratch(len(x), dev)
+        o_k, o_p = k7.mlp_v0_fwd_kernel(x, packed, scratch), m(x)
+        kernel_entry(kernels, "K7 mlp_v0 (fwd)", src7, rep7,
+                     max_err(o_k, o_p), TOL_K7 * (1 + float(o_p.abs().max())),
+                     lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
+                     lambda: m(x), None, nbytes(x, packed, o_k),
+                     mlp_flops(len(x)))
+        # samples at a ReLU kink get a zero cotangent: float32 puts them
+        # on either side of it, and their gradients then differ by design
+        kink7 = k7.relu_margin(m, x) <= KINK
+        g7 = torch.randn(o_p.shape, device=dev, generator=gen) / len(x)
+        g7[kink7] = 0.0
+        dx_k, dw_k = k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch)
+        dx_p, dw_p = k7.mlp_v0_bwd_plain(m, x, g7)
+        dx_64, dw_64 = k7.mlp_v0_bwd_plain(copy.deepcopy(m).double(),
+                                           x.double(), g7.double())
+        f = slice(63, 83)
+
+        def tol64(plain, ref):
+            return TOL_K7_BWD * max(max_err(plain.double(), ref),
+                                    1e-6 * float(ref.abs().max()))
+
+        feat_err = max_err(dx_k[:, f], dx_p[:, f])
+        feat_tol = tol64(dx_p[:, f], dx_64[:, f])
+        zero = float(dx_k[:, :63].abs().max() + dx_k[:, 83:].abs().max())
+        x_r = x.clone().requires_grad_()
+        kernel_entry(kernels, "K7 mlp_v0 (bwd)", src7, rep7,
+                     max_err(dw_k, dw_p), tol64(dw_p, dw_64),
+                     lambda: k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch),
+                     grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7),
+                     None, nbytes(g7, x, packed, dx_k, dw_k),
+                     mlp_flops(len(x), True), dfeat_max_abs_err=feat_err)
+        print(f"   K7 bwd: {int(kink7.sum())} of {len(x)} samples at a ReLU "
+              f"kink, cotangent zeroed")
+        print(f"   K7 bwd vs float64: dW kernel "
+              f"{max_err(dw_k.double(), dw_64):.3e} / twin "
+              f"{max_err(dw_p.double(), dw_64):.3e} (max |dW| "
+              f"{float(dw_64.abs().max()):.3e}); d feats kernel "
+              f"{max_err(dx_k[:, f].double(), dx_64[:, f]):.3e} / twin "
+              f"{max_err(dx_p[:, f].double(), dx_64[:, f]):.3e} (max "
+              f"{float(dx_64[:, f].abs().max()):.3e})")
+        print(f"   K7 bwd: d feats err {feat_err:.3e} (tol {feat_tol:.1e}), "
+              f"PE / view-direction slices max |dx| {zero} (must be 0)")
+        check(feat_err <= feat_tol, "K7 d feats disagree with the twin",
               failures)
+        check(zero == 0.0, "K7 returned a non-zero PE / view gradient",
+              failures)
+        del x, x_r, scratch, o_k, o_p, g7, dx_k, dw_k, dx_p, dw_p, dx_64, \
+            dw_64
+    report(6, kernels, failures)
+
+    # ---- (b) one step on the kernels, one on the twins, same state
+    plain_step_ms = step_parity(6, system, rays, rgbs, gen, failures)
+
+    # ---- (c) the main path: fit, launch counters reset just before
+    counters = {"K4 color_warp": (color_warp, "launches"),
+                **k5_counters(),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    launches, _ = timed_fit(6, system, counters, plain_step_ms, failures)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -656,6 +725,15 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"   {us / 3e3:8.3f} ms/step  {name[:110]}")
     return kernels
+
+
+def k5_counters(suffix=""):
+    """K5's launch counters by kernels-line entry name."""
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    return {f"K5 volume_gather{suffix} (fwd)": (k5.sample_volume,
+                                                "launches"),
+            f"K5 volume_splat{suffix} (bwd)": (k5.sample_volume,
+                                               "bwd_launches")}
 
 
 def generalizable_sample(rng):
@@ -1386,6 +1464,241 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
     return entries
 
 
+class EvalScene:
+    """In-memory DTU-like eval dataset: the rig's 3 source views, and
+    `n` target views near the reference with random pixels and random GT
+    depths in [2.5, 4.2] (a quarter of them 0: background)."""
+
+    def __init__(self, rng, src, dev, n=EVAL_VIEWS):
+        self.src = src
+        intr = src[2]["intrinsics"][0]
+        self.items = [
+            {"rays": rays_for_pose(pose(0, 0.015 * (i + 1), 0.05 * (i + 1)),
+                                   intr, H, W, dev),
+             "rgbs": rng.uniform(0, 1, (H, W, 3)).astype(np.float32),
+             "depth": (rng.uniform(2.5, 4.2, (H, W)) *
+                       (rng.uniform(0, 1, (H, W)) > 0.25)).astype(
+                           np.float32)} for i in range(n)]
+
+    def read_source_views(self, pair_idx=None):
+        imgs_norm, projs, pose_src = self.src
+        return imgs_norm, projs, list(NEAR_FAR), pose_src
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
+    """Phase 9; returns the K6b, K8 and K5-at-C=20 entries."""
+    import torch
+    from mvsnerf_tpu_torch.eval.video import make_path, render_video
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.geometry import get_ndc_coordinate
+    from mvsnerf_tpu_torch.ops.interp import index_point_feature
+    from mvsnerf_tpu_torch.ops.sampling import ray_marcher
+    from mvsnerf_tpu_torch.render import tiled
+    from mvsnerf_tpu_torch.render.renderer import gen_dir_feature
+    src6 = "mvsnerf_tpu_torch/csrc/render_v0.cu"
+    kernels = []
+
+    # ---- (a) K6b and K8 against their twins on one chunk
+    with torch.no_grad():
+        volume, imgs01, nf, pose_t = ev.build_volume(src[0], src[1],
+                                                     NEAR_FAR, src[2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol20 = tiled.bake_color_volume(volume, imgs01, pose_t, nf, PAD)
+        torch.cuda.synchronize()
+        bake_ms = (time.perf_counter() - t0) * 1e3
+        require(tuple(vol20.shape) == (N_PLANES, H // 4 + 2 * PAD,
+                                       W // 4 + 2 * PAD, 20)
+                and bool(torch.isfinite(vol20).all()),
+                f"baked volume {tuple(vol20.shape)} not finite or not "
+                "(128, 176, 208, 20)")
+        print(f"[9 bake] colour-baked volume {tuple(vol20.shape)} in "
+              f"{bake_ms:.2f} ms (K4 at the voxel centres); masks in view "
+              f"{float(vol20[..., 11::4].mean()):.3f}")
+        w2cs, intrs = pose_t["w2cs"], pose_t["intrinsics"]
+        pts, _, rays_d, z = ray_marcher(requests[1][:CHUNK], N_SAMPLES)
+        ndc = get_ndc_coordinate(w2cs[0], intrs[0], pts,
+                                 torch.tensor([W - 1.0, H - 1.0], device=dev),
+                                 near=nf[0], far=nf[1], pad=PAD).contiguous()
+        z = z.contiguous()
+        unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        dirs = gen_dir_feature(w2cs[0], unit).contiguous()
+        n_samp = ndc[..., 0].numel()
+        b_args = (ndc, z, None, dirs, vol20, mlp)
+        r_k, r_p = rf.render_v0(*b_args), rf.render_v0_plain(*b_args)
+        kernel_entry(kernels, "K6b render_v0 (baked)", src6,
+                     "mvsnerf_tpu/ops/pallas_render_tiled.py:313",
+                     max_err(r_k, r_p), TOL_K6,
+                     lambda: rf.render_v0(*b_args),
+                     lambda: rf.render_v0_plain(*b_args), None,
+                     nbytes(ndc, z, dirs, *r_k.values()) +
+                     touched_volume_bytes(vol20, ndc), mlp_flops(n_samp))
+        colors = color_warp(pts.contiguous(), w2cs, intrs,
+                            imgs01.contiguous())
+        feats = torch.cat([index_point_feature(volume, ndc), colors],
+                          -1).contiguous()
+        f_args = (ndc, feats, dirs, z, mlp)
+        f_k, f_p = rf.render_v0_feats(*f_args), rf.render_v0_feats_plain(
+            *f_args)
+        kernel_entry(kernels, "K8 render_v0_feats", src6,
+                     "mvsnerf_tpu/ops/pallas_kernels.py:196",
+                     max_err(f_k, f_p), TOL_K6,
+                     lambda: rf.render_v0_feats(*f_args),
+                     lambda: rf.render_v0_feats_plain(*f_args), None,
+                     nbytes(ndc, feats, dirs, z, *f_k.values()),
+                     mlp_flops(n_samp))
+        w_gap = max_err(f_k["weights"].sum(-1), f_k["acc"])
+        print(f"   K6b inputs: acc mean {float(r_p['acc'].mean()):.4f}; "
+              f"K8: |sum of weights - acc| max {w_gap:.2e}")
+        del pts, rays_d, z, ndc, dirs, colors, feats, r_k, r_p, f_k, f_p, \
+            b_args, f_args, vol20
+    report(9, kernels, failures)
+
+    # ---- (b) the Evaluator in all three modes, launch counters reset
+    counters = {"K4 color_warp": (color_warp, "launches"),
+                "K6 render_v0": (rf.render_v0, "launches"),
+                "K6b render_v0 (baked)": (rf.render_v0, "baked_launches"),
+                "K8 render_v0_feats": (rf.render_v0_feats, "launches")}
+    modes = ("chunked", "hybrid", "tiled")
+    with torch.no_grad():
+        ev.build_volume(src[0], src[1], NEAR_FAR, src[2])
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.renderer("tiled")
+        torch.cuda.synchronize()
+        eval_bake_ms = (time.perf_counter() - t0) * 1e3
+        times = {m: [] for m in modes}
+        outs = {}
+        for i, rays in enumerate(requests):
+            for mode in modes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = ev.render(rays, H, W, mode=mode)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                require(all(bool(torch.isfinite(out[k]).all())
+                            for k in ("rgb", "depth", "acc")),
+                        f"{mode} request {i} not finite")
+                if i == 0:
+                    outs[mode] = out
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        with swapped(tiled, "render_v0", rf.render_v0_plain):
+            twin = ev.render(requests[0], H, W, mode="tiled")
+    terr = max_err(outs["tiled"], twin)
+    rgb = {m: outs[m]["rgb"] for m in modes}
+    hybrid_err = max_err(rgb["hybrid"], rgb["chunked"])
+    baked_gap = (rgb["tiled"] - rgb["chunked"]).abs()
+    print(f"[9 eval] tiled mode's bake (first request's set-up) "
+          f"{eval_bake_ms:.2f} ms")
+    for mode, ts in times.items():
+        ms = sum(ts) / len(ts)
+        print(f"[9 eval] {mode}: {len(ts)} requests of {H}x{W} rays, "
+              f"ms/request {[round(t, 1) for t in ts]}, mean {ms:.1f}, "
+              f"{H * W / ms * 1e3:.0f} rays/s")
+    print(f"[9 eval] tiled request vs its twin path on the same baked "
+          f"volume: max abs err {terr:.3e} (tol {TOL_K6:.0e}); tiled vs "
+          f"chunked rgb (baked against exact colours, no tolerance): max "
+          f"{float(baked_gap.max()):.3e}, mean {float(baked_gap.mean()):.3e};"
+          f" hybrid vs chunked rgb {hybrid_err:.3e} (tol {TOL_MODES:.0e}); "
+          f"launches {launches}")
+    check(terr <= TOL_K6, "the tiled request disagrees with its twin path",
+          failures)
+    check(hybrid_err <= TOL_MODES, "[9] hybrid and chunked renders disagree",
+          failures)
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the Evaluator's path",
+              failures)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    del outs, twin, rgb, baked_gap
+
+    # ---- (c) Evaluator.evaluate on an in-memory DTU-like dataset
+    ds = EvalScene(np.random.default_rng(SEED + 9), src, dev)
+    for mode in modes:
+        t0 = time.perf_counter()
+        res = ev.evaluate(ds, mode=mode)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = res["per_image"]
+        print(f"[9 evaluate] {mode}: {len(rows)} views in {ms:.0f} ms, mean "
+              + ", ".join(f"{k} {v:.4f}" for k, v in res["mean"].items()))
+        check(len(rows) == EVAL_VIEWS and
+              all(set(r) >= {"psnr", "ssim", "abs_err", "acc_0.01"}
+                  and all(math.isfinite(v) for v in r.values())
+                  for r in rows),
+              f"Evaluator.evaluate ({mode}) gave missing or non-finite "
+              "metrics", failures)
+
+    # ---- (d) the colour-volume fine-tune at full width
+    t0 = time.perf_counter()
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlp, mvsnet, scene,
+                             "--use_color_volume --render_mode tiled")
+    vol = system.volume
+    require(tuple(vol.shape) == (N_PLANES, H // 4 + 2 * PAD,
+                                 W // 4 + 2 * PAD, 20)
+            and bool(torch.isfinite(vol).all()),
+            f"colour-volume shape {tuple(vol.shape)} or non-finite")
+    held = {id(p) for g in system.optimizer.param_groups
+            for p in g["params"]}
+    in_adam = sum(id(p) in held for p in system.mvsnet.parameters())
+    print(f"[9 colour fine-tune] volume {tuple(vol.shape)} "
+          f"({vol.numel() / 1e6:.1f}M values), set up in "
+          f"{time.perf_counter() - t0:.1f} s; Adam holds {len(held)} "
+          f"tensors, {in_adam} of them MVSNet's (must be 0)")
+    check(in_adam == 0 and id(vol) in held,
+          "the colour-volume Adam holds MVSNet parameters or not the "
+          "volume", failures)
+    rays, rgbs = first_batch(scene, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k5 = []
+    with torch.no_grad():
+        k5_entries(k5, vol.detach(), step_ndc(system, rays, gen), gen,
+                   " C=20")
+    report(9, k5, failures)
+    plain_step_ms = step_parity(9, system, rays, rgbs, gen, failures)
+    counters = {**k5_counters(" C=20"),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    color_warp.launches = 0
+    launches, _ = timed_fit(9, system, counters, plain_step_ms, failures)
+    check(color_warp.launches == 0, "the colour-volume step warped colours",
+          failures)
+    for k in k5:
+        k["launches"] = launches[k["name"]]
+    kernels += k5
+
+    # ---- (e) render_video in the tiled mode, frames kept in memory
+    poses = make_path("interp", dataset=scene, n_frames=3)[:VIDEO_FRAMES]
+    rf.render_v0.baked_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = render_video(system, poses, H, W, [FOCAL, FOCAL], NEAR_FAR,
+                          chunk=CHUNK)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    baked = rf.render_v0.baked_launches
+    print(f"[9 video] {len(frames)} frames of {H}x{W} in the tiled mode, "
+          f"{ms:.1f} ms/frame (the first makes the renderer), K6b "
+          f"launches {baked}, written to {render_video.last_path}")
+    check(len(frames) == VIDEO_FRAMES and
+          all(f.shape == (H, W, 3) and f.dtype == np.uint8 for f in frames)
+          and baked > 0 and render_video.last_path is None,
+          "render_video's frames are wrong, K6b never ran or it wrote",
+          failures)
+    return kernels
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1409,7 +1722,7 @@ def main():
     from mvsnerf_tpu_torch.ops.geometry import get_ndc_coordinate
     from mvsnerf_tpu_torch.ops.interp import interpolate_bilinear_resize
     from mvsnerf_tpu_torch.ops.render_fused import render_v0, \
-        render_v0_plain
+        render_v0_feats, render_v0_plain
     from mvsnerf_tpu_torch.ops.sampling import ray_marcher
     from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume, \
         sweep_cost_volume_plain
@@ -1510,7 +1823,8 @@ def main():
 
     # ---- 4. the slice, counting kernel launches
     wrappers = {"K1 sweep_cost_volume": sweep_cost_volume,
-                "K4 color_warp": color_warp, "K6 render_v0": render_v0}
+                "K4 color_warp": color_warp, "K6 render_v0": render_v0,
+                "K8 render_v0_feats": render_v0_feats}
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1572,12 +1886,12 @@ def main():
                              32, 48, device)
         results.append([vol.cpu()] + [
             small.render(rays, 32, 48, mode=m)["rgb"].cpu()
-            for m in ("chunked", "hybrid")])
-    (vg, cg, hg), (vc, cc, hc) = results
+            for m in ("chunked", "hybrid", "tiled")])
+    (vg, *rg), (vc, *rc) = results
     verr = max_err(vg, vc) / (1 + float(vc.abs().max()))
-    rerr = max(max_err(cg, cc), max_err(hg, hc))
+    rerr = max(max_err(a, b) for a, b in zip(rg, rc))
     print(f"[5 small] card vs CPU: volume rel err {verr:.2e}, rgb err "
-          f"{rerr:.2e}")
+          f"{rerr:.2e} (chunked, hybrid, tiled)")
     check(verr <= 1e-4 and rerr <= 1e-4, "card and CPU disagree", failures)
 
     # ---- 6. fine-tune
@@ -1593,6 +1907,12 @@ def main():
     torch.cuda.empty_cache()
     kernels += dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms,
                            (imgs_norm, projs, NEAR_FAR, pose_src), volume)
+
+    # ---- 9. the colour-baked volume, the eval and video entry points
+    torch.cuda.empty_cache()
+    kernels += color_phase(dev, mlp, mvsnet, ev, (imgs_norm, projs,
+                                                  pose_src), requests,
+                           failures)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

@@ -8,14 +8,19 @@ Layout (the old module paths, so a reader finds each counterpart):
 
     ops/        geometry, sampling, encoding, compositing, interp,
                 homography; the kernel wrappers sweep (K1, K2), color_warp
-                (K4), render_fused (K6), volume_gather (K5) and mlp_train
-                (K7), each with its plain PyTorch twin
+                (K4), render_fused (K6, K6b, K8), volume_gather (K5),
+                mlp_train (K7) and costreg_conv (K10), each with its plain
+                PyTorch twin
     models/     ABN layers, FeatureNet + CostRegNet (MVSNet), the v0 MLP
     io/         reference-checkpoint state dicts, snapshots
-    render/     chunked renderer, hybrid (fused-kernel) renderer
-    eval/       the no-finetune Evaluator
+    render/     chunked (K8), hybrid (K6) and tiled (colour bake + K6b)
+                renderers
+    eval/       the no-finetune Evaluator, metrics, render paths, video
     train/      the fine-tune and generalizable trainers
     data/       the dtu_ft and dtu loaders
+    utils/      schedulers, CSV logging, depth colormap and panels
+    *.py        the CLIs: train_finetune, train_mvs_nerf, evaluate,
+                render_video
     csrc/       hand-written CUDA kernels for sm_90a, built at first use by
                 `_build.py` into `_build/`
 

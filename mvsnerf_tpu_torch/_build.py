@@ -42,9 +42,12 @@ SIGNATURES = {
                               _I, _I, _I, _P],
     # pts, w2cs, intrinsics, imgs, out, M, V, H, W, stream
     "color_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ndc, z, colors, dirs, vol, weights, out, N, S, D, HP, WP,
+    # ndc, z, colors (or null), dirs, vol, weights, out, N, S, D, HP, WP, C,
     # n_weights, stream
-    "render_v0": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "render_v0": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _P],
+    # ndc, z, feats, dirs, weights, out, wout, N, S, n_weights, stream
+    "render_v0_feats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # vol, ndc, out, n_samples, D, HP, WP, C, stream
     "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, ndc, gvol, n_samples, D, HP, WP, C, stream

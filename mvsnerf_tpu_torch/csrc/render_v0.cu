@@ -1,31 +1,48 @@
-// K6: fused per-ray render with the v0 MLP.
+// K6, K6b and K8: fused per-ray render with the v0 MLP, one kernel body
+// in three forms (template parameters NV volume channels fetched, NC
+// feature channels read from a buffer; NV + NC = 20, pts_bias's inputs).
 //
-// Replaces the TPU kernel mvsnerf_tpu/ops/pallas_render_tiled.py:313
-// `tiled_render_v0` (`_make_kernel` :133) in its hybrid form (exact
-// per-sample colours streamed in). Per ray, front to back over S samples:
-//   - trilinear zeros-padded fetch of 8 channels from the (D, HP, WP, 8)
-//     f32 volume at the sample's NDC (index_point_feature, interp.py:266),
-//   - concatenated with the 12 colour channels from K4 -> 20 features,
+//   K6  <8, 12>  replaces mvsnerf_tpu/ops/pallas_render_tiled.py:313
+//       `tiled_render_v0` (`_make_kernel` :133) in its hybrid form: 8
+//       encoding channels fetched, the 12 exact colour channels of K4
+//       streamed in;
+//   K6b <20, 0>  the same TPU kernel in its baked (`tiled`) form: all 20
+//       channels fetched from the colour-baked (D, HP, WP, 20) volume
+//       (render/tiled.py:44 `bake_color_volume`);
+//   K8  <0, 20>  replaces mvsnerf_tpu/ops/pallas_kernels.py:196
+//       `fused_render_v0` (`_kernel_body` :155): all 20 features already
+//       gathered, no fetch; it also writes the (N, S) compositing weights.
+//
+// Per ray, front to back over S samples:
+//   - the trilinear zeros-padded fetch of NV channels from the
+//     (D, HP, WP, NV) f32 volume at the sample's NDC (index_point_feature,
+//     interp.py:266), then the NC buffered channels -> 20 features,
 //   - PE of the NDC xyz (10 frequencies, input included -> 63),
 //   - the v0 MLP with the ray's unit direction in the reference frame,
-//   - alpha = 1 - exp(-relu sigma), T <- T * (1 - alpha + 1e-10),
-//     accumulating rgb, depth and acc.
+//   - alpha = 1 - exp(-relu sigma), T <- T * (max(1 - alpha, 0) + 1e-10)
+//     (pallas_kernels.py:170-188's clamp), accumulating rgb, depth, acc.
 // White background is applied by the caller. There is NO early stop (the
 // TPU kernel skips blocks below 1e-4 transmittance), so the result equals
 // the unfused chunked render up to f32 summation order. Not carried over:
-// the TPU kernel's bf16 interpolation, its 3-pass split dot, its CP=32
-// lane packing and its tile windows (plan_tiles / pick_tile).
+// the TPU kernels' bf16 interpolation, 3-pass split dots, CP=32 lane
+// packing, tile windows (plan_tiles / pick_tile), and K8's rays_per_tile
+// padding and triangular-matmul prefix sum (a running product here).
 //
 // Layout: one block of 128 threads per ray; thread j owns hidden unit j.
 // Samples go through the MLP in groups of G = 8, so every weight read from
 // global memory (126,788 floats in all, L1/L2-resident) feeds 8 FMAs.
 // Activations live in shared memory as [unit][sample] rows read as
-// broadcast float4s. After each group, thread 0 composites the group's
-// samples in order.
+// broadcast float4s. The group's 20 x 8 (channel, sample) feature slots
+// are staged by threads 32..127, two rounds of 96. After each group,
+// thread 0 composites the group's samples in order.
 //
 // What bounds it on the H100: f32 FMA issue and L1 weight traffic, ~125k
-// FMA per sample; the per-sample inputs (48 B colours + 12 B NDC + 4 B z)
-// are small beside that.
+// FMA per sample; the per-sample inputs (at most 80 B features or 8 x 80 B
+// volume corners, 12 B NDC, 4 B z) are small beside that. The weight loads
+// are latency-bound, so residency matters: uncapped, ptxas gives the body
+// 54 registers (9 blocks a SM) and each form takes ~30 ms per 16384 x 128
+// chunk; `__launch_bounds__(W, MIN_BLOCKS)` caps it at 48 (10 blocks a SM,
+// a few bytes of spills) and brings each form to ~25 ms (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -35,10 +52,10 @@ constexpr int W = 128;   // hidden width
 constexpr int G = 8;     // samples per MLP group
 constexpr int NFREQ = 10;
 constexpr int NPE = 3 + 2 * NFREQ * 3;  // 63
-constexpr int NV = 8;                   // volume channels
-constexpr int NC = 12;                  // colour channels
-constexpr int NF = NV + NC;             // 20
+constexpr int NF = 20;                  // MLP feature inputs (pts_bias)
 constexpr int WH = W / 2;               // views head width
+constexpr int STAGE0 = 4 * G;           // first feature-staging thread
+constexpr int MIN_BLOCKS = 10;          // resident blocks a SM (48 regs)
 
 // packed weights: each layer's (in, out) matrix row-major, then its bias
 constexpr int OFF_W0 = 0;                         // pts_linears.0 (63, 128)
@@ -92,14 +109,46 @@ __device__ __forceinline__ float unnorm(float ndc, int size) {
   return __fmul_rn(__fdiv_rn(__fadd_rn(g, 1.f), 2.f), (float)(size - 1));
 }
 
-__global__ void __launch_bounds__(W)
+// trilinear zeros-padded fetch of channel c of the (D, HP, WP, NV) volume
+template <int NV>
+__device__ __forceinline__ float fetch(const float* __restrict__ vol,
+                                       const float* p, int c, int D, int HP,
+                                       int WP) {
+  const float ix = unnorm(p[0], WP), iy = unnorm(p[1], HP),
+              iz = unnorm(p[2], D);
+  float val = 0.f;
+  if (ix > -1.f && ix < (float)WP && iy > -1.f && iy < (float)HP &&
+      iz > -1.f && iz < (float)D) {
+    const float fx = floorf(ix), fy = floorf(iy), fz = floorf(iz);
+    const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
+    const float wx[2] = {(fx + 1.f) - ix, ix - fx};
+    const float wy[2] = {(fy + 1.f) - iy, iy - fy};
+    const float wz[2] = {(fz + 1.f) - iz, iz - fz};
+#pragma unroll
+    for (int t8 = 0; t8 < 8; ++t8) {
+      const int dx = t8 & 1, dy = (t8 >> 1) & 1, dz = t8 >> 2;
+      const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
+      if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
+        continue;
+      const float wgt = wx[dx] * wy[dy] * wz[dz];
+      val = fmaf(__ldg(vol + (((long long)zi * HP + yi) * WP + xi) * NV + c),
+                 wgt, val);
+    }
+  }
+  return val;
+}
+
+template <int NV, int NC, bool WEIGHTS>
+__global__ void __launch_bounds__(W, MIN_BLOCKS)
     render_v0_kernel(const float* __restrict__ ndc,
                      const float* __restrict__ zv,
-                     const float* __restrict__ colors,
+                     const float* __restrict__ feats,
                      const float* __restrict__ dirs,
                      const float* __restrict__ vol,
                      const float* __restrict__ wts, float* __restrict__ out,
-                     int S, int D, int HP, int WP) {
+                     float* __restrict__ wout, int S, int D, int HP,
+                     int WP) {
+  static_assert(NV + NC == NF, "the v0 MLP takes 20 feature channels");
   __shared__ __align__(16) float s_pe[NPE][G];
   __shared__ __align__(16) float s_ft[NF][G];
   __shared__ __align__(16) float s_ha[W][G];
@@ -125,39 +174,14 @@ __global__ void __launch_bounds__(W)
         s_pe[3 + 3 * k + i][g] = sinf(x * f);
         s_pe[3 + 3 * NFREQ + 3 * k + i][g] = cosf(x * f);
       }
-    } else if (j < 4 * G) {
+    } else if (j < STAGE0) {
       s_z[j - 3 * G] = zv[base + j - 3 * G];
-    } else if (j < 4 * G + NV * G) {  // trilinear fetch, one (sample, ch)
-      const int t = j - 4 * G, g = t / NV, c = t % NV;
-      const float* p = ndc + (base + g) * 3;
-      const float ix = unnorm(p[0], WP), iy = unnorm(p[1], HP),
-                  iz = unnorm(p[2], D);
-      float val = 0.f;
-      if (ix > -1.f && ix < (float)WP && iy > -1.f && iy < (float)HP &&
-          iz > -1.f && iz < (float)D) {
-        const float fx = floorf(ix), fy = floorf(iy), fz = floorf(iz);
-        const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-        const float wx[2] = {(fx + 1.f) - ix, ix - fx};
-        const float wy[2] = {(fy + 1.f) - iy, iy - fy};
-        const float wz[2] = {(fz + 1.f) - iz, iz - fz};
-#pragma unroll
-        for (int t8 = 0; t8 < 8; ++t8) {
-          const int dx = t8 & 1, dy = (t8 >> 1) & 1, dz = t8 >> 2;
-          const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
-          if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
-            continue;
-          const float wgt = wx[dx] * wy[dy] * wz[dz];
-          val = fmaf(
-              __ldg(vol + (((long long)zi * HP + yi) * WP + xi) * NV + c),
-              wgt, val);
-        }
-      }
-      s_ft[c][g] = val;
-    } else {  // colour channels from K4
-      for (int t = j - (4 * G + NV * G); t < NC * G;
-           t += W - (4 * G + NV * G)) {
-        const int g = t / NC, c = t % NC;
-        s_ft[NV + c][g] = colors[(base + g) * NC + c];
+    } else {  // the 20 features, one (sample, channel) slot per round
+      for (int t = j - STAGE0; t < NF * G; t += W - STAGE0) {
+        const int g = t / NF, c = t % NF;
+        s_ft[c][g] = c < NV ? fetch<NV>(vol, ndc + (base + g) * 3, c, D, HP,
+                                        WP)
+                            : feats[(base + g) * NC + (c - NV)];
       }
     }
     __syncthreads();
@@ -226,7 +250,8 @@ __global__ void __launch_bounds__(W)
       for (int g = 0; g < G; ++g) {
         const float alpha = 1.f - expf(-s_sig[g]);
         const float wgt = alpha * trans;
-        trans *= 1.f - alpha + 1e-10f;
+        if (WEIGHTS) wout[base + g] = wgt;
+        trans *= fmaxf(1.f - alpha, 0.f) + 1e-10f;
         acc_r += wgt * s_rgb[0][g];
         acc_g += wgt * s_rgb[1][g];
         acc_b += wgt * s_rgb[2][g];
@@ -248,15 +273,41 @@ __global__ void __launch_bounds__(W)
 
 }  // namespace
 
+// K6 (colors given, C = 8) or K6b (colors null, the baked C = 20 volume);
+// out (N, 5) = rgb, depth, acc
 extern "C" int render_v0(const void* ndc, const void* z, const void* colors,
                          const void* dirs, const void* vol,
                          const void* weights, void* out, int N, int S, int D,
-                         int HP, int WP, int n_weights, void* stream) {
+                         int HP, int WP, int C, int n_weights, void* stream) {
   if (n_weights != N_WEIGHTS || S % G != 0 || N < 1)
     return (int)cudaErrorInvalidValue;
-  render_v0_kernel<<<N, W, 0, (cudaStream_t)stream>>>(
-      (const float*)ndc, (const float*)z, (const float*)colors,
-      (const float*)dirs, (const float*)vol, (const float*)weights,
-      (float*)out, S, D, HP, WP);
+  const auto st = (cudaStream_t)stream;
+  if (colors != nullptr && C == 8)
+    render_v0_kernel<8, 12, false><<<N, W, 0, st>>>(
+        (const float*)ndc, (const float*)z, (const float*)colors,
+        (const float*)dirs, (const float*)vol, (const float*)weights,
+        (float*)out, nullptr, S, D, HP, WP);
+  else if (colors == nullptr && C == NF)
+    render_v0_kernel<NF, 0, false><<<N, W, 0, st>>>(
+        (const float*)ndc, (const float*)z, nullptr, (const float*)dirs,
+        (const float*)vol, (const float*)weights, (float*)out, nullptr, S, D,
+        HP, WP);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// K8: the 20 features of every sample gathered already; out (N, 5) = rgb,
+// depth, acc and wout (N, S) the compositing weights
+extern "C" int render_v0_feats(const void* ndc, const void* z,
+                               const void* feats, const void* dirs,
+                               const void* weights, void* out, void* wout,
+                               int N, int S, int n_weights, void* stream) {
+  if (n_weights != N_WEIGHTS || S % G != 0 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  render_v0_kernel<0, NF, true><<<N, W, 0, (cudaStream_t)stream>>>(
+      (const float*)ndc, (const float*)z, (const float*)feats,
+      (const float*)dirs, nullptr, (const float*)weights, (float*)out,
+      (float*)wout, S, 0, 0, 0);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Shared data-loading utilities: image IO, PFM depth maps and MVSNet camera
-files (counterpart of mvsnerf_tpu/data/common.py, the parts the dtu_ft
-loader reads). Numpy only; PIL is imported only inside `load_image`, so
+files, and the spiral and spheric render paths (counterpart of
+mvsnerf_tpu/data/common.py, the parts the dtu_ft loader and the video
+paths read). Numpy only; PIL is imported only inside `load_image`, so
 nothing else here needs it."""
 
 from __future__ import annotations
@@ -102,3 +103,41 @@ def resize_nearest(img, fx, fy):
     xs = np.minimum((np.arange(out_w) * (w / out_w)).astype(np.int64), w - 1)
     ys = np.minimum((np.arange(out_h) * (h / out_h)).astype(np.int64), h - 1)
     return img[ys[:, None], xs[None, :]]
+
+
+def _normalize(v):
+    return v / np.linalg.norm(v)
+
+
+def create_spiral_poses(radii, focus_depth, n_poses=120):
+    """Spiral render path (data/llff.py:83-113): (n_poses, 3, 4)."""
+    out = []
+    for t in np.linspace(0, 4 * np.pi, n_poses + 1)[:-1]:
+        center = np.array([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * radii
+        z = _normalize(center - np.array([0, 0, -focus_depth]))
+        x = _normalize(np.cross(np.array([0, 1.0, 0]), z))
+        y = np.cross(z, x)
+        out.append(np.stack([x, y, z, center], 1))
+    return np.stack(out)
+
+
+def create_spheric_poses(radius, n_poses=120, phi=-np.pi / 5):
+    """Circular render path around z (data/llff.py:116-154):
+    (n_poses, 3, 4)."""
+    def spheric_pose(theta):
+        trans_t = np.array([[1, 0, 0, 0], [0, 1, 0, -0.9 * radius],
+                            [0, 0, 1, radius], [0, 0, 0, 1.0]])
+        rot_phi = np.array([[1, 0, 0, 0],
+                            [0, np.cos(phi), -np.sin(phi), 0],
+                            [0, np.sin(phi), np.cos(phi), 0], [0, 0, 0, 1]])
+        rot_theta = np.array([[np.cos(theta), 0, -np.sin(theta), 0],
+                              [0, 1, 0, 0],
+                              [np.sin(theta), 0, np.cos(theta), 0],
+                              [0, 0, 0, 1]])
+        c2w = rot_theta @ rot_phi @ trans_t
+        c2w = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
+                        [0, 0, 0, 1.0]]) @ c2w
+        return c2w[:3]
+
+    return np.stack([spheric_pose(th)
+                     for th in np.linspace(0, 2 * np.pi, n_poses + 1)[:-1]])

@@ -125,6 +125,22 @@ class DTUFTDataset:
                 np.stack(proj_mats)[:, :3].astype(np.float32),
                 near_far_source, pose_source)
 
+    def load_poses_all(self):
+        """Camera-to-world poses of every camera file of the scan, (n, 4,
+        4), for the per-image source selection and the video's `interp`
+        path; sets `focal` to the image-scale focal at this dataset's
+        downsample (the JAX package's reads the full-size one)."""
+        cam_dir = os.path.join(self.root_dir, "Cameras/train")
+        c2ws, intrinsic = [], None
+        for item in sorted(os.listdir(cam_dir)):
+            intrinsic, w2c, _, _ = read_cam_file(
+                os.path.join(cam_dir, item), self.SCALE_FACTOR)
+            c2ws.append(np.linalg.inv(w2c))
+        intrinsic = intrinsic.copy()
+        intrinsic[:2] *= 4 * self.downsample
+        self.focal = [intrinsic[0, 0], intrinsic[1, 1]]
+        return np.stack(c2ws)
+
     def read_meta(self):
         self.img_idx = self.pair_idx[0] if self.split == "train" \
             else self.pair_idx[1]

@@ -1,13 +1,19 @@
-"""The no-finetune evaluator's compute: build the encoding volume once per
-scene, then answer each novel-view request with a full-image render.
+"""The no-finetune evaluator: build a scene's encoding volume, answer each
+novel-view request with a full-image render, and score a dataset's views.
 
 Counterpart of mvsnerf_tpu/eval/evaluate.py:48 `Evaluator`. `build_volume`
-takes the arrays a dataset's `read_source_views` returns, so a
-dataset-backed CLI can wrap it; the metrics and the dataset loop are not
-part of this module.
+takes the arrays a dataset's `read_source_views` returns; `render` serves
+one view in the `chunked` (K4 colours, `grid_sample` fetch, K8), `hybrid`
+(K4 colours into K6) or `tiled` (colours baked into the volume, K6b) mode;
+`evaluate` loops over a dataset with the reference's protocol
+(renderer.ipynb cells 4-18): optionally the 3 nearest training views as
+each image's sources, PSNR / SSIM / LPIPS, Blender's 80 % centre crop,
+DTU's depth mask with the depth metrics, and [gt | pred | depth] panels.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -16,10 +22,23 @@ from .. import resolve_device, set_precision_policy
 from ..models.mvsnet import N_DEPTH_PLANES
 from ..render.hybrid import make_hybrid_renderer
 from ..render.renderer import make_chunked_renderer
+from ..render.tiled import make_tiled_renderer
 from ..train.common import unpreprocess_images
+from ..utils.vis import panel, to8b, visualize_depth
+from .metrics import abs_error, acc_threshold, psnr, ssim
 
 RENDER_MODES = {"chunked": make_chunked_renderer,
-                "hybrid": make_hybrid_renderer}
+                "hybrid": make_hybrid_renderer,
+                "tiled": make_tiled_renderer}
+
+
+def nearest_source_views(tgt_c2w, train_c2ws, n: int = 3):
+    """Indices of the n training views whose camera centres are nearest
+    the target's by L1 distance (renderer.ipynb cell 11's protocol, not the
+    L2 of utils.py:698-711)."""
+    d = np.sum(np.abs(np.asarray(train_c2ws)[:, :3, 3] -
+                      np.asarray(tgt_c2w)[:3, 3]), axis=-1)
+    return np.argsort(d)[:n]
 
 
 class Evaluator:
@@ -30,7 +49,7 @@ class Evaluator:
         n_samples: samples per ray; pad: cost-volume padding;
         n_planes: sweep planes (the reference's 128).
         white_bkgd: composite onto white (Blender scenes).
-        chunk: rays per render chunk (both modes).
+        chunk: rays per render chunk (every mode).
         costreg_impl: the route of the volume build's U-Net (a
             `--costreg_impl` value: "dband" for the K10 kernels, the others
             cuDNN); None keeps the one `mvsnet` was built with.
@@ -48,7 +67,8 @@ class Evaluator:
         self.n_samples, self.pad, self.n_planes = n_samples, pad, n_planes
         self.white_bkgd, self.chunk = white_bkgd, chunk
         self.device = resolve_device(device)
-        self.renderers = None
+        self.scene = None
+        self.renderers = {}
 
     def _tensor(self, a):
         if torch.is_tensor(a):
@@ -57,7 +77,9 @@ class Evaluator:
 
     @torch.no_grad()
     def build_volume(self, imgs, proj_mats, near_far, pose_source):
-        """Build the scene's encoding volume and its renderers.
+        """Build the scene's encoding volume; its renderers are made at
+        their mode's first request (the `tiled` one bakes the colours
+        then).
 
         Args:
             imgs: (V, H, W, 3) ImageNet-normalised source views, view 0 =
@@ -77,13 +99,21 @@ class Evaluator:
                                 costreg_impl=self.costreg_impl)
         pose = {k: self._tensor(pose_source[k])
                 for k in ("w2cs", "intrinsics")}
-        imgs01 = unpreprocess_images(imgs_norm)
-        self.renderers = {
-            mode: make(self.mlp, volume, imgs01, nf, pose, self.n_samples,
-                       self.pad, white_bkgd=self.white_bkgd,
-                       chunk=self.chunk)
-            for mode, make in RENDER_MODES.items()}
-        return volume, imgs01, nf, pose
+        self.scene = (volume, unpreprocess_images(imgs_norm), nf, pose)
+        self.renderers = {}
+        return self.scene
+
+    def renderer(self, mode: str):
+        """The current scene's fn(rays, H, W) for `mode`, made once."""
+        if self.scene is None:
+            raise RuntimeError("render() before build_volume()")
+        if mode not in RENDER_MODES:
+            raise ValueError(f"unknown render mode {mode!r}")
+        if mode not in self.renderers:
+            self.renderers[mode] = RENDER_MODES[mode](
+                self.mlp, *self.scene, self.n_samples, self.pad,
+                white_bkgd=self.white_bkgd, chunk=self.chunk)
+        return self.renderers[mode]
 
     @torch.no_grad()
     def render(self, rays, H: int, W: int, mode: str = "chunked"):
@@ -91,13 +121,84 @@ class Evaluator:
 
         Args:
             rays: (H*W, 8) [origin, direction, near, far] ray buffer.
-            mode: 'chunked' (K4 colours + plain fetch/MLP/compositing) or
-                'hybrid' (K4 colours + the fused K6 kernel).
+            mode: 'chunked', 'hybrid' or 'tiled' (module docstring).
         Returns:
             dict rgb (H*W, 3), depth (H*W,), acc (H*W,).
         """
-        if self.renderers is None:
-            raise RuntimeError("render() before build_volume()")
-        if mode not in RENDER_MODES:
-            raise ValueError(f"unknown render mode {mode!r}")
-        return self.renderers[mode](self._tensor(rays), H, W)
+        return self.renderer(mode)(self._tensor(rays), H, W)
+
+    def _score(self, pred, gt, depth, sample, lpips_fn, center_crop):
+        """One image's metrics (evaluate.py:189-219)."""
+        row = {}
+        if center_crop:  # Blender: the central 80 % (renderer.ipynb c. 11)
+            hc, wc = gt.shape[0] // 10, gt.shape[1] // 10
+            pred, gt = pred[hc:-hc, wc:-wc], gt[hc:-hc, wc:-wc]
+            row["psnr"] = float(psnr(pred, gt))
+        elif "depth" in sample:  # DTU: GT depth 0 is background (cell 16)
+            gt_depth = np.asarray(sample["depth"])
+            mask = gt_depth > 0
+            row["psnr"] = float(psnr(pred, gt, mask))
+            row["abs_err"] = float(abs_error(depth, gt_depth, mask).sum()
+                                   / mask.sum())
+            for t in (0.01, 0.05, 0.1):
+                row[f"acc_{t}"] = float(acc_threshold(depth, gt_depth, mask,
+                                                      t))
+        else:
+            row["psnr"] = float(psnr(pred, gt))
+        row["ssim"] = float(ssim(pred, gt))
+        if lpips_fn is not None:
+            row["lpips"] = float(lpips_fn(pred * 2 - 1, gt * 2 - 1))
+        return row
+
+    def evaluate(self, dataset, mode: str = "chunked", lpips_fn=None,
+                 save_dir: str | None = None,
+                 per_image_sources: bool = False, train_c2ws=None,
+                 train_indices=None, val_c2ws=None,
+                 center_crop: bool = False):
+        """Score the dataset's views (evaluate.py:130-231).
+
+        Args:
+            dataset: `read_source_views(pair_idx=None)`, `len()`, items
+                with `rays` (H*W, 8), `rgbs` (H, W, 3) and optionally GT
+                `depth` (H, W); `poses` when `per_image_sources` has no
+                `val_c2ws`.
+            mode: the render mode of every image.
+            per_image_sources: rebuild the volume for each image from the
+                3 training views nearest it (`train_c2ws`, with dataset
+                view ids `train_indices`); else the dataset's default
+                sources for all.
+            val_c2ws: the target poses (default `dataset.poses`).
+            center_crop: Blender's 80 % crop before the metrics.
+            save_dir: where to write each image's [gt | pred | depth]
+                panel as a PNG (imageio).
+        Returns:
+            {"per_image": [metrics dict per image], "mean": {...}}.
+        """
+        if not per_image_sources:
+            self.build_volume(*dataset.read_source_views())
+        results = []
+        for i in range(len(dataset)):
+            sample = dataset[i]
+            if per_image_sources:
+                tgt = val_c2ws[i] if val_c2ws is not None else \
+                    dataset.poses[i]
+                sel = nearest_source_views(tgt, train_c2ws, 3)
+                self.build_volume(*dataset.read_source_views(
+                    pair_idx=np.asarray(train_indices)[sel]))
+            gt = np.asarray(sample["rgbs"], np.float32)
+            h, w = gt.shape[:2]
+            out = self.render(sample["rays"], h, w, mode)
+            pred = out["rgb"].clamp(0, 1).reshape(h, w, 3).cpu().numpy()
+            depth = out["depth"].reshape(h, w).cpu().numpy()
+            results.append(self._score(pred, gt, depth, sample, lpips_fn,
+                                       center_crop))
+            if save_dir:
+                import imageio.v2 as imageio
+                os.makedirs(save_dir, exist_ok=True)
+                dvis, _ = visualize_depth(
+                    depth, tuple(self.scene[2].cpu().numpy()))
+                imageio.imwrite(os.path.join(save_dir, f"{i:03d}.png"),
+                                to8b(panel([gt, pred, dvis])))
+        mean = {k: float(np.mean([r[k] for r in results]))
+                for k in results[0]}
+        return {"per_image": results, "mean": mean}

@@ -3,13 +3,18 @@ mvsnerf_tpu/render/renderer.py, v0 MLP).
 
 Per sample: trilinear fetch from the encoding volume, per-view colours +
 masks (kernel K4 on the card), positional encoding, the MLP, and alpha
-compositing. Full images are rendered by a Python loop over fixed-size ray
-chunks (`render_image_chunked`).
+compositing. With the colour-baked 20-channel volume (`use_color_volume`,
+render/tiled.py:`bake_color_volume`) the fetch alone gives all 20
+features and no colours are warped. Full images are rendered by a Python
+loop over fixed-size ray chunks (`render_image_chunked`).
 
-The eval route fetches with `grid_sample` and runs the module's MLP. The
-training route (`training=True`, the fine-tune step) differentiates with
-respect to the volume: the fetch goes through K5 (`sample_volume`) and the
-MLP through K7 (`mlp_v0_train`). `twins=True` runs the training route on
+The eval route fetches with `grid_sample`. The training route
+(`training=True`, the fine-tune step) differentiates with respect to the
+volume: the fetch goes through K5 (`sample_volume`) and the MLP through
+K7 (`mlp_v0_train`). Where no gradient is asked for (`torch.no_grad`,
+every full-image render), the gathered features go to K8
+(`render_v0_feats`) for PE, MLP and compositing in one kernel; otherwise
+the eval route runs the module's MLP and `raw2outputs`. `twins=True` runs
 the kernels' plain twins instead, to hold one against the other.
 """
 
@@ -23,6 +28,7 @@ from ..ops.encoding import positional_encoding
 from ..ops.geometry import get_ndc_coordinate
 from ..ops.interp import index_point_feature
 from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
+from ..ops.render_fused import render_v0_feats, render_v0_feats_plain
 from ..ops.sampling import ray_marcher
 from ..ops.volume_gather import sample_volume, sample_volume_plain
 
@@ -42,16 +48,21 @@ def gen_dir_feature(w2c_ref, rays_dir):
 
 
 def gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
-                  training: bool = False, twins: bool = False):
-    """Per-sample MLP feature: 8 volume channels + 12 colour channels.
+                  training: bool = False, twins: bool = False,
+                  use_color_volume: bool = False):
+    """Per-sample MLP feature: 8 volume channels + 12 colour channels, or
+    with `use_color_volume` the 20 channels of the baked volume alone.
     `training` fetches through K5 (or its twin), differentiably in the
     volume."""
-    colors = build_color_volume(pts_world, w2cs, intrinsics, imgs, twins)
+    colors = None if use_color_volume else \
+        build_color_volume(pts_world, w2cs, intrinsics, imgs, twins)
     if training:
         fetch = sample_volume_plain if twins else sample_volume
         ray_feats = fetch(volume, pts_ndc.contiguous())
     else:
         ray_feats = index_point_feature(volume, pts_ndc)
+    if colors is None:
+        return ray_feats
     return torch.cat([ray_feats, colors], dim=-1)
 
 
@@ -77,25 +88,36 @@ def run_network(mlp, pts_ndc, viewdirs, feats, training: bool = False,
 
 def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
                 w2cs, intrinsics, imgs, white_bkgd: bool = False,
-                training: bool = False, twins: bool = False):
-    """The render entry (renderer.py:138-165).
+                training: bool = False, twins: bool = False,
+                use_color_volume: bool = False):
+    """The render entry (renderer.py:138-165, 266-313). With gradients
+    off, PE, MLP and compositing run in K8 (or its twin with `twins`).
 
     Args:
         mlp: the v0 `MVSNeRF` module.
-        volume: (D, hp, wp, 8) encoding volume.
+        volume: (D, hp, wp, 8) encoding volume, or (D, hp, wp, 20) baked
+            with `use_color_volume`.
         pts_world / pts_ndc: (N, S, 3); z_vals: (N, S); rays_dir: (N, 3).
         w2c_ref: reference world-to-camera (view-direction feature).
-        w2cs / intrinsics / imgs: source views for the colours.
+        w2cs / intrinsics / imgs: source views for the colours (unused
+            with `use_color_volume`).
         training: the fine-tune step's route (K5 fetch, K7 MLP).
-        twins: with `training`, the kernels' plain twins instead.
+        twins: the kernels' plain twins instead.
     Returns:
-        dict rgb, depth, acc, disp, weights, alpha.
+        dict rgb, depth, acc, weights (and disp, alpha with gradients on).
     """
     unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
                                              keepdim=True)
     angle = gen_dir_feature(w2c_ref, unit_dirs)
     feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
-                          training, twins)
+                          training, twins, use_color_volume)
+    if not torch.is_grad_enabled():
+        fused = render_v0_feats_plain if twins else render_v0_feats
+        out = fused(pts_ndc.contiguous(), feats.contiguous(),
+                    angle.contiguous(), z_vals.contiguous(), mlp)
+        if white_bkgd:
+            out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
+        return out
     raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
     return raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
 
@@ -122,9 +144,10 @@ def make_chunked_renderer(mlp, volume, imgs, near_far, pose_source,
                           n_samples: int, pad: int, white_bkgd: bool = False,
                           chunk: int = 16384):
     """The chunked full-image renderer (mvsnerf_tpu/eval/evaluate.py:77
-    `render_rays_buffer`): K4 colours, then the plain fetch, MLP and
-    compositing, chunk by chunk. Arguments as `make_hybrid_renderer`.
-    Returns fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,)."""
+    `render_rays_buffer`): K4 colours and the `grid_sample` fetch, then K8
+    for PE, MLP and compositing, chunk by chunk. Arguments as
+    `make_hybrid_renderer`. Returns fn(rays (N, 8), H, W) -> dict rgb
+    (N, 3), depth, acc (N,)."""
     w2cs, intrinsics = pose_source["w2cs"], pose_source["intrinsics"]
 
     def chunk_fn(rays):

@@ -8,9 +8,14 @@ on the training route (K4 colours, K5 volume fetch, K7 MLP on a card;
 their plain versions on the CPU), takes the MSE against the pixels and
 updates with Adam under the step schedule.
 
-Refused with NotImplementedError (ROADMAP.md): the colour volume, the
-density volume and `N_importance > 0`, `use_disp`, MLPs other than v0 at
-D=6, W=128, and reading the JAX package's `.msgpack` snapshots.
+With `--use_color_volume` the per-view colours are baked once into the
+volume (render/tiled.py:`bake_color_volume`), which becomes a trainable
+20-channel volume: the step fetches all 20 features through K5 and warps
+no colours, and Adam holds {mlp, volume} only.
+
+Refused with NotImplementedError (ROADMAP.md): the density volume and
+`N_importance > 0`, `use_disp`, MLPs other than v0 at D=6, W=128, and
+reading the JAX package's `.msgpack` snapshots.
 """
 
 from __future__ import annotations
@@ -29,15 +34,41 @@ from ..models.mvsnet import MVSNet
 from ..models.nerf_mlp import MVSNeRF
 from ..render.renderer import gen_dir_feature, gen_pts_feats, \
     network_input, render_image_chunked, render_rays, sample_rays
+from ..render.tiled import bake_color_volume, cached_tiled_renderer
 from ..utils.schedulers import make_lr_schedule
 from .common import Prefetcher, RayBatchIterator, unpreprocess_images
 
 
+def frustum_point_volume(h, w, d, pad, near_far, intrinsic_s4, c2w):
+    """World-space centres of the volume's voxels, (D, h + 2 pad,
+    w + 2 pad, 3) channel-last (reference utils.py:338-355
+    `get_ptsvolume`, JAX train/finetune.py:35). `intrinsic_s4` is the
+    stride-4 (feature-scale) intrinsic; h, w are the unpadded feature
+    dims. Plane 0 is at `near`, the last at `far` (the reference's
+    linspace(1, 0)), the volume's plane order."""
+    dev = intrinsic_s4.device
+
+    def linspace(a, b, n):
+        return a + (b - a) / (n - 1) * torch.arange(n, device=dev)
+
+    corners = torch.tensor([[-pad, -pad, 1.0], [w + pad, -pad, 1.0],
+                            [-pad, h + pad, 1.0]], device=dev)
+    corners = corners @ torch.linalg.inv(intrinsic_s4).T
+    xs = linspace(corners[0, 0], corners[1, 0], w + 2 * pad)
+    ys = linspace(corners[0, 1], corners[2, 1], h + 2 * pad)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    plane = torch.stack([gx, gy, torch.ones_like(gx)], -1)
+    t = linspace(torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev),
+                 d).reshape(d, 1, 1, 1)
+    pts = t * plane * near_far[0] + (1 - t) * plane * near_far[1]
+    pts = pts.reshape(-1, 3) @ c2w[:3, :3].T + c2w[:3, 3]
+    return pts.reshape(d, h + 2 * pad, w + 2 * pad, 3)
+
+
 def _refuse_unported(args):
     for flag, what in (
-            ("use_color_volume", "the colour volume (K5 at C=20)"),
             ("use_density_volume", "the density volume (ray_marcher_fine, "
-             "sample_pdf, render_density, frustum_point_volume)"),
+             "sample_pdf, render_density, the 200-step refresh)"),
             ("use_disp", "sampling linear in disparity")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported yet")
@@ -106,6 +137,7 @@ class FinetuneSystem:
         self.near_far = self._tensor(near_far)
         self.pose_source = {k: self._tensor(v)
                             for k, v in pose_source.items()}
+        self.imgs = unpreprocess_images(self.imgs_norm).contiguous()
         if ckpt_volume is not None:
             volume = ckpt_volume.to(self.device, torch.float32)
         else:
@@ -113,23 +145,26 @@ class FinetuneSystem:
                 volume, _ = self.mvsnet(self.imgs_norm,
                                         self._tensor(proj_mats),
                                         self.near_far, pad=self.args.pad)
+        if self.args.use_color_volume and volume.shape[-1] == 8:
+            volume = bake_color_volume(volume, self.imgs, self.pose_source,
+                                       self.near_far, self.args.pad)
         self.volume = torch.nn.Parameter(volume.detach().clone()
                                          .contiguous())
-        self.imgs = unpreprocess_images(self.imgs_norm).contiguous()
 
     def _build_optimizer(self):
-        """Adam over the MLP, the volume and the MVSNet (JAX
-        finetune.py:132-136). The MVSNet never runs in the step, so its
-        gradients stay None and Adam leaves it as it is. On a card Adam is
-        PyTorch's fused kernel (one pass over the 37.5M-value volume and
-        its moments instead of several)."""
+        """Adam over the MLP, the volume and, without the colour volume,
+        the MVSNet (JAX finetune.py:132-136). The MVSNet never runs in the
+        step, so its gradients stay None and Adam leaves it as it is. On a
+        card Adam is PyTorch's fused kernel (one pass over the volume, 37.5M
+        values or 93.7M with the colour volume, and its moments instead of
+        several)."""
         args = self.args
         schedule = make_lr_schedule(
             args.lrate, args.lr_scheduler, args.decay_step, args.decay_gamma,
             num_steps=args.num_epochs * 10000 or 10000)
+        mvsnet = [] if args.use_color_volume else [*self.mvsnet.parameters()]
         self.optimizer = torch.optim.Adam(
-            [*self.mlp.parameters(), self.volume,
-             *self.mvsnet.parameters()],
+            [*self.mlp.parameters(), self.volume, *mvsnet],
             lr=args.lrate, betas=(0.9, 0.999),
             fused=self.device.type == "cuda")
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
@@ -149,14 +184,16 @@ class FinetuneSystem:
     def render_rays(self, rays, training: bool, generator=None,
                     twins: bool = False):
         """Render a (N, 8) ray batch over the trainable volume; dict rgb,
-        depth, acc, ... (render.renderer.render_rays)."""
+        depth, acc, ... (render.renderer.render_rays: K8 with gradients
+        off)."""
         pts, rays_d, z_vals, pts_ndc = self._samples(rays, generator)
         w2cs = self.pose_source["w2cs"]
         return render_rays(self.mlp, self.volume, pts, pts_ndc, z_vals,
                            rays_d, w2cs[0], w2cs,
                            self.pose_source["intrinsics"], self.imgs,
                            white_bkgd=self.args.white_bkgd,
-                           training=training, twins=twins)
+                           training=training, twins=twins,
+                           use_color_volume=self.args.use_color_volume)
 
     @torch.no_grad()
     def mlp_input(self, rays, generator=None):
@@ -165,7 +202,8 @@ class FinetuneSystem:
         pts, rays_d, _, pts_ndc = self._samples(rays, generator)
         w2cs = self.pose_source["w2cs"]
         feats = gen_pts_feats(self.volume, pts_ndc, pts, w2cs,
-                              self.pose_source["intrinsics"], self.imgs)
+                              self.pose_source["intrinsics"], self.imgs,
+                              use_color_volume=self.args.use_color_volume)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         return network_input(pts_ndc, gen_dir_feature(w2cs[0], unit), feats)
 
@@ -246,15 +284,29 @@ class FinetuneSystem:
     @torch.no_grad()
     def render_image(self, rays, chunk: int = 8192):
         """Full-image render from a flat (N, 8) ray buffer over the trained
-        volume, chunk by chunk, on the eval route (grid_sample fetch, the
-        module's MLP). Depths are jittered as in training, with a generator
-        seeded 0 (the JAX trainer renders with PRNGKey(0))."""
-        gen = torch.Generator(device=self.device).manual_seed(0)
+        volume.
+
+        With `--render_mode tiled` the colour-baked volume goes through K6b
+        (render/tiled.py), at unjittered depths; the bake is cached until
+        the volume changes, or is the volume itself with
+        `--use_color_volume`. Otherwise chunk by chunk: the K5 fetch (and
+        K4 colours), then K8 for PE, MLP and compositing, with depths
+        jittered as in training by a generator seeded 0 (the JAX trainer
+        renders with PRNGKey(0))."""
         rays = torch.as_tensor(np.asarray(rays, np.float32),
                                device=self.device)
+        if self.args.render_mode == "tiled":
+            fn = cached_tiled_renderer(
+                self, self.volume, self.imgs, self.near_far,
+                self.pose_source, n_samples=self.args.N_samples,
+                pad=self.args.pad, white_bkgd=self.args.white_bkgd,
+                chunk=chunk)
+            # rays render one by one: a (1, N) "image" is the whole buffer
+            return fn(rays, 1, rays.shape[0])
+        gen = torch.Generator(device=self.device).manual_seed(0)
 
         def chunk_fn(r):
-            out = self.render_rays(r, training=False, generator=gen)
+            out = self.render_rays(r, training=True, generator=gen)
             return {"rgb": out["rgb"], "depth": out["depth"]}
 
         return render_image_chunked(chunk_fn, (rays,), rays.shape[0], chunk)

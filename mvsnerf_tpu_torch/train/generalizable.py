@@ -267,7 +267,7 @@ class GeneralizableSystem:
     @torch.no_grad()
     def render_view(self, sample, chunk: int = 8192):
         """Full-image render of the sample's target view from its 3 source
-        views on the eval route (grid_sample fetch, the module's MLP), depths
+        views on the eval route (K4 colours, grid_sample fetch, K8), depths
         unjittered (train_mvs_nerf_pl.py:172-254). Returns numpy rgb
         (H, W, 3), depth (H, W) and the target image."""
         args = self.args

@@ -10,7 +10,10 @@ Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 `--device cpu` it raises). Writes
 `runs_fine_tuning/<expname>/metrics.csv` (train loss/PSNR, val PSNR) and
 snapshots under `runs_fine_tuning/<expname>/ckpts/`, and resumes from the
-newest of them by default. SSIM and the image panels are not ported yet.
+newest of them by default. `--use_color_volume` trains the colour-baked
+20-channel volume; `--render_mode tiled` renders the validation views
+through K6b. SSIM and the image panels of validation are not ported yet
+(`evaluate.py` has both).
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
-"""The port imports torch and numpy only: never jax, never mvsnerf_tpu, and
-importing a kernel module builds nothing (this machine has no nvcc)."""
+"""The port imports torch, numpy and scipy only: never jax, never
+mvsnerf_tpu, and none of matplotlib, imageio or PIL (the card's machine
+has none of them; the video writer and the image loader import theirs
+inside the function); importing a kernel module builds nothing (this
+machine has no nvcc)."""
 
 import os
 import subprocess
@@ -41,6 +44,13 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.train.generalizable",
     "mvsnerf_tpu_torch.train_mvs_nerf",
     "mvsnerf_tpu_torch.ops.costreg_conv",
+    "mvsnerf_tpu_torch.render.tiled",
+    "mvsnerf_tpu_torch.eval.metrics",
+    "mvsnerf_tpu_torch.eval.paths",
+    "mvsnerf_tpu_torch.eval.video",
+    "mvsnerf_tpu_torch.utils.vis",
+    "mvsnerf_tpu_torch.evaluate",
+    "mvsnerf_tpu_torch.render_video",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,12 +76,16 @@ def test_port_never_imports_jax():
 
 
 def test_port_never_imports_pil():
-    """The card's machine has no PIL: only `data.common.load_image`, which
-    chip_smoke.py never calls, imports it."""
+    """The card's machine has no PIL, matplotlib or imageio: only
+    `data.common.load_image` (PIL) and the writers of `eval.video` and
+    `Evaluator.evaluate`'s panels (imageio), which chip_smoke.py never
+    calls, import one."""
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert 'PIL' not in sys.modules\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('PIL', 'matplotlib', 'imageio'))\n"
+            "assert not bad, bad\n"
             "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
@@ -84,6 +98,24 @@ def test_kernel_module_imports_without_building(module):
     code = ("import mvsnerf_tpu_torch._build as b\n"
             f"import mvsnerf_tpu_torch.ops.{module}\n"
             "assert b._lib is None\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["render.tiled", "render.hybrid",
+                                    "eval.evaluate", "train.finetune",
+                                    "evaluate", "render_video"])
+def test_render_module_imports_without_building(module):
+    """The modules that launch K6, K6b and K8 import without a build, with
+    every launch counter at 0."""
+    code = ("import mvsnerf_tpu_torch._build as b\n"
+            f"import mvsnerf_tpu_torch.{module}\n"
+            "from mvsnerf_tpu_torch.ops.render_fused import render_v0, \\\n"
+            "    render_v0_feats\n"
+            "assert b._lib is None\n"
+            "assert render_v0.launches == render_v0.baked_launches == 0\n"
+            "assert render_v0_feats.launches == 0\n"
             "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr

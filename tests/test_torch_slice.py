@@ -135,11 +135,11 @@ def test_evaluator_rejects_bad_requests(case):
     ev.build_volume(case["imgs_norm"], case["projs"], NEAR_FAR,
                     {"w2cs": case["w2cs"],
                      "intrinsics": np.stack([case["intr"]] * 3)})
-    for mode in ("chunked", "hybrid"):
+    for mode in ("chunked", "hybrid", "tiled"):
         with pytest.raises(ValueError):
             ev.render(case["ref"]["rays"], 16, 15, mode=mode)
     with pytest.raises(ValueError):
-        ev.render(case["ref"]["rays"], 16, 16, mode="tiled")
+        ev.render(case["ref"]["rays"], 16, 16, mode="exact")
 
 
 
