@@ -7,7 +7,8 @@ Drives the port's paths at DTU scale on synthetic 640x512 scenes made
 from a seed, with seeded random weights: no-finetune inference, the
 per-scene fine-tune step and the generalizable training step, the last
 also with the U-Net on the hand-written K10 kernels (`--costreg_impl
-dband`).
+dband`), the colour-baked volume with the eval and video entry points, and
+the render's gradient in its source images (K4's backward).
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -17,7 +18,8 @@ dband`).
   3. kernels: K1 (sweep), K4 (colour warp) and K6 (fused render) against
      their plain PyTorch twins on the path's own inputs, at the path's
      shapes (a 41x128x176x208 cost volume, 16384 rays x 128 samples),
-     with max abs error and CUDA-event times of kernel and twin;
+     with max abs error and CUDA-event times of kernel and twin (and for
+     K4 of one `F.grid_sample` of the 3 views on its grid);
   4. slice: `Evaluator.build_volume` -> a (128, 176, 208, 8) volume, then
      3 full 640x512 requests at 128 samples, each rendered in 'chunked'
      (K8) and 'hybrid' (K6) mode; checks finiteness, hybrid vs chunked rgb
@@ -74,7 +76,21 @@ dband`).
      C=20 against their twins, one step on the kernels against one on the
      twins, 36 steps of `fit` timed over the last 30, and no MVSNet
      parameter in Adam; (e) `render_video`: 3 frames of 640x512 through
-     `render_image` in the `tiled` mode, kept in memory.
+     `render_image` in the `tiled` mode, kept in memory;
+ 10. the render's gradient in its source images, at phase 6's
+     configuration with the images made leaf tensors that require grad:
+     (a) K4's backward against its twin on the cotangent that reaches the
+     warp in the fine-tune loss's own graph (a hook on the warp's output),
+     held to a float64 run of the twin, with CUDA-event times of kernel,
+     twin and `grid_sampler_2d_backward` (the 3 views on K4's grid, border
+     padding), and the same on one 16384 x 128 serving chunk; (b) d loss /
+     d imgs of the fine-tune loss through `render_rays(training=True)`
+     (K4, K5, K7 forward and backward), from one state and draws, on the
+     kernels, on the twins and on the twins in float64 (launch counters
+     reset just before the kernels' run); (c) K4's backward launched in
+     this phase and in no earlier one (no trainer reaches it, and the
+     forward-only route is unchanged); (d) asking the card for d pts_world
+     raises.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -110,6 +126,11 @@ TOL_K5, TOL_K7 = 1e-5, 1e-5
 # inputs: |kernel - twin| <= TOL_K7_BWD x max(|twin - float64|, 1e-6 x
 # max|float64|).
 TOL_K7_BWD = 5.0
+# K4 backward: its f32 atomics add each pixel's gradient in an order that
+# changes from run to run. Held to a float64 run of the twin by
+# TOL_K7_BWD's rule: |kernel - twin| <= TOL_K4_BWD x max(|twin - float64|,
+# 1e-6 x max|float64|).
+TOL_K4_BWD = 5.0
 # one fine-tune step, kernels vs twins: gradients x max|g|; updates x lr
 # (Adam's first step moves a value by about lr); ReLU-kink margin
 TOL_STEP_GRAD, STEP_TOL, KINK = 1e-4, 0.02, 5e-6
@@ -442,6 +463,17 @@ def k5_entries(kernels, v, ndc, gen, suffix=""):
                  lambda: torch.ops.aten.grid_sampler_3d_backward(
                      g5_lib, vol5, grid5, 0, 0, True, [True, False]),
                  nbytes(g5, ndc, b_k), n5 * (30 + 8 * c5 * 2))
+
+
+def k4_library_inputs(pts, w2cs, intrs, imgs):
+    """The images as (V, 3, H, W) and K4's own sampling grid as
+    (V, N*S, 1, 2): the inputs of one `grid_sample` (or its backward) over
+    the V views, the library call that computes K4's RGB."""
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp_grids
+    V, H_, W_, _ = imgs.shape
+    grids = color_warp_grids(pts, w2cs, intrs, H_, W_)
+    return (imgs.permute(0, 3, 1, 2).contiguous(),
+            grids.reshape(V, -1, 1, 2).contiguous())
 
 
 def finetune_system(dev, mlp, mvsnet, scene, extra=""):
@@ -1699,6 +1731,281 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
     return kernels
 
 
+def image_grads(system, samples, rgbs, twins, f64=False):
+    """The fine-tune loss (the step's MSE) at the system's state through
+    `render_rays(training=True)` with the source images made a leaf that
+    requires grad, differentiated in the images, the volume and the MLP in
+    one backward: on the kernels, or on the twins (in float64 when `f64`).
+    Returns (loss, d imgs)."""
+    import torch
+    from mvsnerf_tpu_torch.render import renderer
+    mlp, vol, imgs = system.mlp, system.volume.detach(), system.imgs.detach()
+    w2cs = system.pose_source["w2cs"]
+    intrs = system.pose_source["intrinsics"]
+    if f64:
+        mlp = copy.deepcopy(mlp).double()
+        samples, rgbs, vol, imgs, w2cs, intrs = (
+            [x.double() for x in samples], rgbs.double(), vol.double(),
+            imgs.double(), w2cs.double(), intrs.double())
+        torch.set_default_dtype(torch.float64)
+    try:
+        vol = vol.clone().requires_grad_()
+        im = imgs.clone().requires_grad_()
+        pts, rays_d, z_vals, ndc = samples
+        out = renderer.render_rays(mlp, vol, pts, ndc, z_vals, rays_d,
+                                   w2cs[0], w2cs, intrs, im, training=True,
+                                   twins=twins)
+        loss = torch.mean((out["rgb"] - rgbs) ** 2)
+        g_im = torch.autograd.grad(loss, [im, vol, *mlp.parameters()])[0]
+        return float(loss.detach()), g_im
+    finally:
+        if f64:
+            torch.set_default_dtype(torch.float32)
+
+
+def device_ms(fn, reps=5):
+    """Device time per call of `fn` by kernel name (torch.profiler), ms,
+    after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / reps
+    return by_name
+
+
+def k4_bwd_compare(g, pts, w2cs, intrs, imgs):
+    """K4's backward against its twin on the cotangent `g`, held to a
+    float64 run of the twin (TOL_K4_BWD), with CUDA-event times of kernel,
+    twin and `grid_sampler_2d_backward` and the bound. Returns a dict of
+    the kernels-line numbers."""
+    import torch
+    from mvsnerf_tpu_torch.ops import color_warp as k4
+    V = imgs.shape[0]
+    b_k = k4.color_warp_bwd_kernel(g, pts, w2cs, intrs, imgs.shape)
+    b_p = k4.color_warp_bwd_plain(g, pts, w2cs, intrs, imgs)
+    b_64 = k4.color_warp_bwd_plain(g.double(), pts.double(), w2cs.double(),
+                                   intrs.double(), imgs.double())
+    rerun = max_err(k4.color_warp_bwd_kernel(g, pts, w2cs, intrs,
+                                             imgs.shape), b_k)
+    tol = TOL_K4_BWD * max(max_err(b_p.double(), b_64),
+                           1e-6 * float(b_64.abs().max()))
+    inp, grid = k4_library_inputs(pts, w2cs, intrs, imgs)
+    # the RGB slots of each view's block, (V, 3, N*S, 1)
+    g_lib = g.reshape(-1, V, 4)[..., :3].permute(1, 2, 0)[..., None] \
+        .contiguous()
+
+    def lib():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g_lib, inp, grid, 0, 1, True, [True, False])[0]
+
+    lib_err = max_err(lib().permute(0, 2, 3, 1), b_p)
+    im_r = imgs.clone().requires_grad_()
+    n = pts[..., 0].numel()
+    # device time alone (no host overhead), and the kernel on each view by
+    # itself: where the atomics collide
+    dev_k = device_ms(lambda: k4.color_warp_bwd_kernel(g, pts, w2cs, intrs,
+                                                        imgs.shape))
+    per_view = []
+    for v in range(V):
+        g_v = g[..., 4 * v:4 * v + 4].contiguous()
+        one = (pts, w2cs[v:v + 1], intrs[v:v + 1])
+        per_view.append(sum(
+            t for name, t in device_ms(lambda: k4.color_warp_bwd_kernel(
+                g_v, *one, (1, *imgs.shape[1:]))).items()
+            if "color_warp_bwd" in name))
+    return dict(
+        max_abs_err=max_err(b_k, b_p), tol=tol,
+        ms=cuda_ms(lambda: k4.color_warp_bwd_kernel(g, pts, w2cs, intrs,
+                                                     imgs.shape)),
+        plain_ms=cuda_ms(grad_only(
+            lambda: k4.color_warp_plain(pts, w2cs, intrs, im_r), im_r, g)),
+        library_ms=cuda_ms(lib),
+        # per sample and view: the projection (~30) and 4 taps of 3
+        # channels, a multiply and an add each
+        **bound(nbytes(g, pts, w2cs, intrs, b_k), n * V * (30 + 4 * 3 * 2)),
+        extra=dict(err_f64_kernel=max_err(b_k.double(), b_64),
+                   err_f64_twin=max_err(b_p.double(), b_64),
+                   max_abs=float(b_64.abs().max()), rerun=rerun,
+                   library_vs_twin=lib_err, samples=n, device_kernel=dev_k,
+                   device_library=device_ms(lib), device_per_view=per_view))
+
+
+def print_k4_bwd_device(x):
+    """The device-time lines of `k4_bwd_compare`'s extras."""
+    for what in ("kernel", "library"):
+        print(f"   K4 bwd device ms per call ({what}, torch.profiler): " +
+              ", ".join(f"{name[:60]} {t:.4f}" for name, t in
+                        x[f"device_{what}"].items()))
+    print("   K4 bwd device ms of the kernel on each view alone: " +
+          ", ".join(f"view {v} {t:.4f}"
+                    for v, t in enumerate(x["device_per_view"])))
+
+
+def image_grad_phase(dev, mlp, mvsnet, requests, earlier, failures):
+    """Phase 10: the render's gradient in its source images; `earlier`
+    maps each earlier phase to the K4 backward launches it made. Returns
+    K4 backward's entry of the kernels line."""
+    import torch
+    from mvsnerf_tpu_torch.ops import color_warp as k4
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.sampling import ray_marcher
+    from mvsnerf_tpu_torch.render import renderer
+
+    t0 = time.perf_counter()
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlp, mvsnet, scene)
+    imgs = system.imgs.detach()
+    w2cs = system.pose_source["w2cs"]
+    intrs = system.pose_source["intrinsics"]
+    gen = torch.Generator(device=dev)
+    print(f"[10 image grad] phase 6's configuration, source images "
+          f"{tuple(imgs.shape)} a leaf that requires grad; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) K4 backward against its twin on the cotangent that reaches
+    # the warp in the fine-tune loss's own graph, at phase 6's shapes
+    rays, rgbs = first_batch(scene, dev)
+    gen.manual_seed(SEED + 1)
+    samples = system._samples(rays, gen)
+    captured = {}
+
+    def capturing(*args):
+        out = k4.color_warp(*args)
+        captured["args"] = tuple(a.detach() for a in args)
+        out.register_hook(lambda g: captured.update(g=g))
+        return out
+
+    with swapped(renderer, "color_warp", capturing):
+        image_grads(system, samples, rgbs, twins=False)
+    g = captured["g"].contiguous()
+    pts = captured["args"][0]
+    rgb_g = g.reshape(-1, 3, 4)[..., :3]
+    print(f"   K4 bwd: cotangent {tuple(g.shape)} from the loss's graph, "
+          f"max |RGB slots| {float(rgb_g.abs().max()):.3e}, mask slots "
+          f"max {float(g[..., 3::4].abs().max()):.3e} (dropped)")
+    require(float(rgb_g.abs().max()) > 0, "no cotangent reached the warp")
+    res = k4_bwd_compare(g, pts, w2cs, intrs, imgs)
+    entry = dict(name="K4 color_warp (bwd)", route="cuda",
+                 source="mvsnerf_tpu_torch/csrc/color_warp.cu",
+                 replaces="mvsnerf_tpu/ops/pallas_sweep.py:147",
+                 **{k: v for k, v in res.items() if k != "extra"})
+    x = res["extra"]
+    print(f"   K4 bwd vs float64 ({x['samples']} samples): kernel "
+          f"{x['err_f64_kernel']:.3e} / twin {x['err_f64_twin']:.3e} (max "
+          f"|d imgs| {x['max_abs']:.3e}); kernel run-to-run "
+          f"{x['rerun']:.3e}; grid_sampler_2d_backward vs twin "
+          f"{x['library_vs_twin']:.3e}")
+    print_k4_bwd_device(x)
+    report(10, [entry], failures)
+    # the same on one serving-sized chunk, a seeded random cotangent
+    with torch.no_grad():
+        pts_c = ray_marcher(requests[1][:CHUNK], N_SAMPLES)[0].contiguous()
+    g_c = torch.randn((*pts_c.shape[:2], 4 * len(w2cs)), device=dev,
+                      generator=gen.manual_seed(SEED + 10))
+    chunk = k4_bwd_compare(g_c, pts_c, w2cs, intrs, imgs)
+    print(f"[10 kernel] K4 color_warp (bwd) on one {CHUNK} x {N_SAMPLES} "
+          f"chunk: max_abs_err {chunk['max_abs_err']:.3e} (tol "
+          f"{chunk['tol']:.1e}), kernel {chunk['ms']:.3f} ms, plain "
+          f"{chunk['plain_ms']:.3f} ms, library {chunk['library_ms']:.3f} "
+          f"ms, bound {chunk['bound_ms']:.4f} ms ({chunk['bound_by']}); vs "
+          f"float64 kernel {chunk['extra']['err_f64_kernel']:.3e} / twin "
+          f"{chunk['extra']['err_f64_twin']:.3e}")
+    print_k4_bwd_device(chunk["extra"])
+    check(chunk["max_abs_err"] <= chunk["tol"],
+          "K4 bwd disagrees with its twin on a serving chunk", failures)
+    entry["serving_chunk"] = {k: chunk[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+    del g, g_c, pts_c, captured, res, chunk
+    torch.cuda.empty_cache()
+
+    # ---- (b) d loss / d imgs three ways from one state and draws: up to
+    # FT_BATCH of 16 x FT_BATCH drawn rays whose samples all lie more than
+    # KINK from every ReLU kink of the MLP (the fine-tune step's rule)
+    pick = torch.randperm(len(scene.all_rays),
+                          generator=torch.Generator().manual_seed(SEED + 11))
+    pick = pick[:16 * FT_BATCH].numpy()
+    rays = torch.from_numpy(scene.all_rays[pick]).to(dev)
+    rgbs = torch.from_numpy(scene.all_rgbs[pick]).to(dev)
+    gen.manual_seed(SEED + 12)
+    samples = system._samples(rays, gen)
+    pts, rays_d, _, ndc = samples
+    with torch.no_grad():
+        feats = renderer.gen_pts_feats(system.volume, ndc, pts, w2cs, intrs,
+                                       imgs)
+        unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        x = renderer.network_input(
+            ndc, renderer.gen_dir_feature(w2cs[0], unit), feats)
+        margin = k7.relu_margin(system.mlp, x).reshape(len(rays), -1)
+    keep = torch.nonzero(margin.amin(1) > KINK)[:, 0]
+    require(len(keep) >= FT_BATCH // 4,
+            f"only {len(keep)} of {len(rays)} rays clear of the ReLU kinks")
+    keep = keep[:FT_BATCH]
+    samples = [x[keep] for x in samples]
+    rgbs = rgbs[keep]
+    del feats, x, margin, rays
+    # the main path: counters reset just before the kernels' run
+    counters = {"K4 color_warp": (k4.color_warp, "launches"),
+                "K4 color_warp (bwd)": (k4.color_warp, "bwd_launches"),
+                **k5_counters(),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    loss_k, g_k = image_grads(system, samples, rgbs, twins=False)
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    loss_p, g_p = image_grads(system, samples, rgbs, twins=True)
+    loss_64, g_64 = image_grads(system, samples, rgbs, twins=True, f64=True)
+    g64_max = float(g_64.abs().max())
+    err = {"kernels vs twins": max_err(g_k, g_p),
+           "twins vs float64": max_err(g_p.double(), g_64),
+           "kernels vs float64": max_err(g_k.double(), g_64)}
+    tol = TOL_GEN_GRAD * max(err["twins vs float64"], 1e-6 * g64_max)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[10 step] d loss / d imgs from one state ({len(keep)} rays x "
+          f"{N_SAMPLES} samples): loss kernels {loss_k:.7f} / twins "
+          f"{loss_p:.7f} / twins in float64 {loss_64:.7f} (rel "
+          f"{loss_rel:.2e}, tol 1e-5); max|g| {g64_max:.3e}; " + ", ".join(
+              f"{k} {e:.2e}" for k, e in err.items()) + f" (tol {tol:.2e}); "
+          f"launches {launches}")
+    check(err["kernels vs float64"] <= tol and loss_rel <= 1e-5,
+          f"the kernels' image gradient is further from float64 than "
+          f"{TOL_GEN_GRAD} x the twins'", failures)
+    check(g64_max > 0, "the render has no gradient in its images", failures)
+    for name, n in launches.items():
+        check(n == 1, f"{name} launched {n} times in one differentiable "
+                      "render, not once", failures)
+    entry["launches"] = launches[entry["name"]]
+
+    # ---- (c) no earlier phase launched K4's backward
+    print(f"[10 launches] K4 backward launches by phase: {earlier}, "
+          f"phase 10: {entry['launches']}")
+    check(not any(earlier.values()),
+          "an earlier phase launched K4's backward", failures)
+
+    # ---- (d) the geometry's gradient is refused on the card
+    try:
+        k4.color_warp(pts[:4].clone().requires_grad_(), w2cs, intrs, imgs)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[10 refusal] d pts_world on the card: {refused}")
+    check(refused is not None, "the card computed a gradient in pts_world",
+          failures)
+    return entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1784,6 +2091,7 @@ def main():
         w2cs, intrs = pose_t["w2cs"], pose_t["intrinsics"]
         k4 = (pts.contiguous(), w2cs, intrs, imgs01.contiguous())
         colors, colors_p = color_warp(*k4), color_warp_plain(*k4)
+        inp4, grid4 = k4_library_inputs(*k4)
         kernels.append(dict(
             name="K4 color_warp", route="cuda",
             source="mvsnerf_tpu_torch/csrc/color_warp.cu",
@@ -1791,7 +2099,10 @@ def main():
             max_abs_err=max_err(colors, colors_p), tol=TOL_K4,
             ms=cuda_ms(lambda: color_warp(*k4)),
             plain_ms=cuda_ms(lambda: color_warp_plain(*k4)),
-            library_ms=None,
+            # the RGB alone: no projection, no mask
+            library_ms=cuda_ms(lambda: torch.nn.functional.grid_sample(
+                inp4, grid4, mode="bilinear", padding_mode="border",
+                align_corners=True)),
             # per sample and view: the projection (~30) and 4 bilinear
             # taps of 3 channels
             **bound(nbytes(*k4, colors),
@@ -1817,9 +2128,17 @@ def main():
                     mlp_flops(k6[0][..., 0].numel()))))
         print(f"   K6 inputs: acc mean {float(r_p['acc'].mean()):.4f}, "
               f"rgb std {float(r_p['rgb'].std()):.4f}")
-        del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p
+        del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p, inp4, grid4
     report(3, kernels, failures)
     torch.cuda.empty_cache()
+    # K4 backward launches by phase, from here on (phase 10 reads them)
+    k4_bwd = {}
+
+    def note_k4_bwd(phase):
+        k4_bwd[phase] = color_warp.bwd_launches
+        color_warp.bwd_launches = 0
+
+    note_k4_bwd(3)
 
     # ---- 4. the slice, counting kernel launches
     wrappers = {"K1 sweep_cost_volume": sweep_cost_volume,
@@ -1871,6 +2190,7 @@ def main():
         check(n > 0, f"{name} never launched on the main path", failures)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    note_k4_bwd(4)
 
     # ---- 5. small input: the card against the CPU's plain twins
     rng = np.random.default_rng(SEED + 1)
@@ -1893,26 +2213,36 @@ def main():
     print(f"[5 small] card vs CPU: volume rel err {verr:.2e}, rgb err "
           f"{rerr:.2e} (chunked, hybrid, tiled)")
     check(verr <= 1e-4 and rerr <= 1e-4, "card and CPU disagree", failures)
+    note_k4_bwd(5)
 
     # ---- 6. fine-tune
     torch.cuda.empty_cache()
     kernels += finetune_phase(dev, mlp, mvsnet, failures)
+    note_k4_bwd(6)
 
     # ---- 7. generalizable training
     torch.cuda.empty_cache()
     entries, cudnn_step_ms = generalizable_phase(dev, mlp, mvsnet, failures)
     kernels += entries
+    note_k4_bwd(7)
 
     # ---- 8. the dband route: the U-Net on K10
     torch.cuda.empty_cache()
     kernels += dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms,
                            (imgs_norm, projs, NEAR_FAR, pose_src), volume)
+    note_k4_bwd(8)
 
     # ---- 9. the colour-baked volume, the eval and video entry points
     torch.cuda.empty_cache()
     kernels += color_phase(dev, mlp, mvsnet, ev, (imgs_norm, projs,
                                                   pose_src), requests,
                            failures)
+    note_k4_bwd(9)
+
+    # ---- 10. the render's gradient in its source images (K4 backward)
+    torch.cuda.empty_cache()
+    kernels.append(image_grad_phase(dev, mlp, mvsnet, requests, k4_bwd,
+                                    failures))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

@@ -42,6 +42,8 @@ SIGNATURES = {
                               _I, _I, _I, _P],
     # pts, w2cs, intrinsics, imgs, out, M, V, H, W, stream
     "color_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, pts, w2cs, intrinsics, gimgs, M, V, H, W, stream
+    "color_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ndc, z, colors (or null), dirs, vol, weights, out, N, S, D, HP, WP, C,
     # n_weights, stream
     "render_v0": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

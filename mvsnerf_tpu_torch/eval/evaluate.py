@@ -55,15 +55,18 @@ class Evaluator:
             cuDNN); None keeps the one `mvsnet` was built with.
         device: where the scene's tensors live: CUDA unless the caller
             names the CPU; with no card it raises.
+        lindisp: sweep planes, ray samples and NDC depth linear in
+            disparity (`--use_disp`, JAX evaluate.py:66, 100, 104), in
+            every mode.
     """
 
     def __init__(self, mvsnet, mlp, n_samples: int = 128, pad: int = 24,
                  n_planes: int = N_DEPTH_PLANES, white_bkgd: bool = False,
                  chunk: int = 16384, device=None,
-                 costreg_impl: str | None = None):
+                 costreg_impl: str | None = None, lindisp: bool = False):
         set_precision_policy()
         self.mvsnet, self.mlp = mvsnet, mlp
-        self.costreg_impl = costreg_impl
+        self.costreg_impl, self.lindisp = costreg_impl, lindisp
         self.n_samples, self.pad, self.n_planes = n_samples, pad, n_planes
         self.white_bkgd, self.chunk = white_bkgd, chunk
         self.device = resolve_device(device)
@@ -96,6 +99,7 @@ class Evaluator:
         nf = self._tensor(near_far)
         volume, _ = self.mvsnet(imgs_norm, self._tensor(proj_mats), nf,
                                 pad=self.pad, n_planes=self.n_planes,
+                                lindisp=self.lindisp,
                                 costreg_impl=self.costreg_impl)
         pose = {k: self._tensor(pose_source[k])
                 for k in ("w2cs", "intrinsics")}
@@ -112,7 +116,8 @@ class Evaluator:
         if mode not in self.renderers:
             self.renderers[mode] = RENDER_MODES[mode](
                 self.mlp, *self.scene, self.n_samples, self.pad,
-                white_bkgd=self.white_bkgd, chunk=self.chunk)
+                white_bkgd=self.white_bkgd, chunk=self.chunk,
+                lindisp=self.lindisp)
         return self.renderers[mode]
 
     @torch.no_grad()

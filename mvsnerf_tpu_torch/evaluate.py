@@ -73,7 +73,8 @@ def main(argv=None):
     val_ds = DATASETS[args.dataset_name](args, "val")
     evaluator = Evaluator(mvsnet, mlp, n_samples=args.N_samples,
                           pad=args.pad, white_bkgd=args.white_bkgd,
-                          chunk=args.chunk * 5, device=device)
+                          chunk=args.chunk * 5, device=device,
+                          lindisp=args.use_disp)
 
     train_idx = train_c2ws = val_c2ws = None
     if not args.fixed_sources:

@@ -20,7 +20,7 @@ from .renderer import build_color_volume, gen_dir_feature, \
 
 def make_hybrid_renderer(mlp, volume, imgs, near_far, pose_source,
                          n_samples: int, pad: int, white_bkgd: bool = False,
-                         chunk: int = 16384):
+                         chunk: int = 16384, lindisp: bool = False):
     """Return fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,).
 
     Args:
@@ -29,6 +29,7 @@ def make_hybrid_renderer(mlp, volume, imgs, near_far, pose_source,
         imgs: (V, H, W, 3) source images in [0, 1] (not normalised).
         near_far: (2,) float32 tensor, the reference-view depth range.
         pose_source: dict of (V, 4, 4) `w2cs` and (V, 3, 3) `intrinsics`.
+        lindisp: samples linear in disparity (`--use_disp`).
     """
     w2cs = pose_source["w2cs"].contiguous()
     intrinsics = pose_source["intrinsics"].contiguous()
@@ -37,7 +38,7 @@ def make_hybrid_renderer(mlp, volume, imgs, near_far, pose_source,
     def chunk_fn(rays):
         pts, rays_d, z_vals, pts_ndc = sample_rays(
             rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad)
+            near_far, pad, lindisp=lindisp)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         colors = build_color_volume(pts, w2cs, intrinsics, imgs)
         out = render_v0(pts_ndc.contiguous(), z_vals.contiguous(), colors,

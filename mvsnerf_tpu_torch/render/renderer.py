@@ -124,25 +124,30 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
 
 def sample_rays(rays, n_samples: int, w2c_ref, intrinsic_ref, src_hw,
                 near_far, pad: int, perturb: float = 0.0,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                lindisp: bool = False):
     """Samples of a (N, 8) ray buffer and their reference NDC: (pts
     (N, S, 3), rays_d (N, 3), z_vals (N, S), pts_ndc (N, S, 3)). Depths
     are jittered by `perturb` with draws from `generator` (on the rays'
-    device). NDC is normalised by the SOURCE views' extent `src_hw`: the
-    volume's feature grid is sized by them (the pad remap)."""
+    device), and with `lindisp` spaced, and mapped to NDC z, linearly in
+    disparity (`--use_disp`). NDC is normalised by the SOURCE views'
+    extent `src_hw`: the volume's feature grid is sized by them (the pad
+    remap)."""
     pts, _, rays_d, z_vals = ray_marcher(rays, n_samples, perturb=perturb,
+                                         lindisp=lindisp,
                                          generator=generator)
     # staged copy: a blocking one would wait for the device every batch
     inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0]).to(
         rays.device, non_blocking=True)
     pts_ndc = get_ndc_coordinate(w2c_ref, intrinsic_ref, pts, inv_scale,
-                                 near=near_far[0], far=near_far[1], pad=pad)
+                                 near=near_far[0], far=near_far[1], pad=pad,
+                                 lindisp=lindisp)
     return pts, rays_d, z_vals, pts_ndc
 
 
 def make_chunked_renderer(mlp, volume, imgs, near_far, pose_source,
                           n_samples: int, pad: int, white_bkgd: bool = False,
-                          chunk: int = 16384):
+                          chunk: int = 16384, lindisp: bool = False):
     """The chunked full-image renderer (mvsnerf_tpu/eval/evaluate.py:77
     `render_rays_buffer`): K4 colours and the `grid_sample` fetch, then K8
     for PE, MLP and compositing, chunk by chunk. Arguments as
@@ -153,7 +158,7 @@ def make_chunked_renderer(mlp, volume, imgs, near_far, pose_source,
     def chunk_fn(rays):
         pts, rays_d, z_vals, pts_ndc = sample_rays(
             rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad)
+            near_far, pad, lindisp=lindisp)
         out = render_rays(mlp, volume, pts, pts_ndc, z_vals, rays_d, w2cs[0],
                           w2cs, intrinsics, imgs, white_bkgd=white_bkgd)
         return {k: out[k] for k in ("rgb", "depth", "acc")}

@@ -50,7 +50,7 @@ def bake_color_volume(volume, imgs, pose_source, near_far, pad):
 
 def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
                         n_samples: int, pad: int, white_bkgd: bool = False,
-                        chunk: int = 16384):
+                        chunk: int = 16384, lindisp: bool = False):
     """Return fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,).
 
     Args:
@@ -62,6 +62,9 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
             scale, whatever the render target's.
         near_far: (2,) float32 tensor; pose_source: dict of (V, 4, 4)
             `w2cs` and (V, 3, 3) `intrinsics` (and optionally `c2ws`).
+        lindisp: samples linear in disparity (`--use_disp`); the bake stays
+            at the voxel centres of `frustum_point_volume`, linear in depth,
+            as JAX's does (mvsnerf_tpu/render/tiled.py:61, 169, 176).
     The returned function carries the baked volume as `.volume`.
     """
     if volume.shape[-1] == 8:
@@ -77,7 +80,7 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
     def chunk_fn(rays):
         _, rays_d, z_vals, pts_ndc = sample_rays(
             rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad)
+            near_far, pad, lindisp=lindisp)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         out = render_v0(pts_ndc.contiguous(), z_vals.contiguous(), None,
                         gen_dir_feature(w2cs[0], unit).contiguous(), volume,

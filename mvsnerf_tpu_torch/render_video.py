@@ -5,8 +5,9 @@ render_video.py, reference renderer_video.ipynb), with the same flags:
         --datadir /data/dtu/scan1 --ckpt /path/mvsnerf-v0.tar \\
         --expname scan1-video --render_mode tiled
 
-Builds the fine-tune system (from a reference-format `--ckpt`, then the
-newest snapshot of `runs_fine_tuning/<expname>/ckpts/` if there is one),
+Builds the fine-tune system from a reference-format `--ckpt` (`.tar`),
+or restores exactly the port snapshot that `--ckpt` names (`ckpt_*.pt`,
+strictly: a missing file raises, and no other snapshot is read), then
 renders 60 frames along the scene's path (the DTU views interpolated)
 with a depth panel beside each, and writes `results/<expname>.mp4` (a GIF
 without imageio's ffmpeg plugin). Runs on the CUDA card (`--device cpu`
@@ -34,11 +35,10 @@ def main(argv=None, n_frames: int = 60):
     device = resolve_device(args.device)
     train_ds = DATASETS[args.dataset_name](args, "train")
     system = FinetuneSystem(args, train_ds, device=device)
-    ckpt_dir = os.path.join("runs_fine_tuning", args.expname or "exp",
-                            "ckpts")
-    step = system.restore(ckpt_dir)
-    if step:
-        print(f"restored {ckpt_dir} at step {step}")
+    if args.ckpt and args.ckpt.endswith(".pt"):
+        # exactly the named snapshot, as the root render_video.py:27-32
+        step = system.restore(args.ckpt, strict=True)
+        print(f"restored {args.ckpt} (step {step})")
 
     poses = make_path("interp", dataset=train_ds, n_frames=n_frames)
     w, h = train_ds.img_wh

@@ -107,7 +107,10 @@ class FinetuneSystem:
         self.device = resolve_device(device)
 
         ckpt_volume = None
-        if args.ckpt and os.path.exists(args.ckpt):
+        # a port snapshot (`.pt`) is not a reference checkpoint: the caller
+        # restores it after construction (`restore`)
+        if args.ckpt and os.path.exists(args.ckpt) and \
+                not args.ckpt.endswith(".pt"):
             if args.ckpt.endswith(".msgpack"):
                 raise NotImplementedError(
                     "reading the JAX package's .msgpack snapshots is not "
