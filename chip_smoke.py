@@ -19,7 +19,9 @@ the render's gradient in its source images (K4's backward).
      their plain PyTorch twins on the path's own inputs, at the path's
      shapes (a 41x128x176x208 cost volume, 16384 rays x 128 samples),
      with max abs error and CUDA-event times of kernel and twin (and for
-     K4 of one `F.grid_sample` of the 3 views on its grid);
+     K4 of one `F.grid_sample` of the 3 views on its grid and K4's masks
+     against the twin's; the device times of K4 and `F.grid_sample`, from
+     `torch.profiler`, are taken on the same inputs after phase 10);
   4. slice: `Evaluator.build_volume` -> a (128, 176, 208, 8) volume, then
      3 full 640x512 requests at 128 samples, each rendered in 'chunked'
      (K8) and 'hybrid' (K6) mode; checks finiteness, hybrid vs chunked rgb
@@ -32,11 +34,15 @@ the render's gradient in its source images (K4's backward).
      same seeded weights, on an in-memory scene of the same rig with 16
      random 640x512 training views (5.2M rays, no files), volume
      (128, 176, 208, 8), batch 1024, 128 samples, perturb 1.0:
-     (a) K5 (volume gather / splat) and K7 (v0 MLP forward / backward)
-     against their plain twins at the step's own shapes; (b) one step on
-     the kernels and one on the twins from the same state; (c) 36 steps of
-     `fit` (launch counters reset just before), timed over the last 30;
-     (d) `torch.profiler` over 3 steps: device time by kernel group;
+     (a) one step on the kernels and one on the twins from the same
+     state; (b) 36 steps of `fit` (launch counters reset just before),
+     timed over the last 30; (c) K5 (volume gather / splat) and K7 (v0 MLP
+     forward / backward) against their plain twins at the step's own
+     shapes, with CUDA-event and `torch.profiler` device times of kernel
+     and library call; (d) `torch.profiler` over 3 steps: device time by
+     kernel group. No profile is taken before (b): `torch.profiler` can
+     leave CUPTI attached to the process and slow every later launch on
+     the host, and the step is host-bound;
   7. generalizable training: `GeneralizableSystem` from a
      reference-format checkpoint of the same weights, on bench.py's
      generalizable batch (4 random 640x512 views of the rig, the last the
@@ -57,7 +63,8 @@ the render's gradient in its source images (K4's backward).
      (a) each K10 kernel (conv3d_fwd at stride 1 and 2, conv3d_up,
      conv3d_wgrad) against its plain twin on the inputs one step gives it,
      layer by layer in each direction (forward, dgrad, wgrad), with
-     CUDA-event times of the kernel, the twin and cuDNN's call; (b) one
+     CUDA-event times of the kernel, the twin and cuDNN's call (and device
+     times of kernel and cuDNN for each stride-2 call); (b) one
      step's gradients on K10 against a float64 run of the twins; (c) 12
      steps of `fit` (launch counters reset just before), timed over the
      last 10, next to phase 7's; (d) `Evaluator(costreg_impl="dband")
@@ -67,7 +74,8 @@ the render's gradient in its source images (K4's backward).
   9. the colour-baked volume and the eval and video entry points: (a) K6b
      (the baked render) and K8 (PE + MLP + compositing from gathered
      features) against their twins on one 16384-ray chunk at 128 samples
-     over the baked (128, 176, 208, 20) volume, with the bake's time; (b)
+     over the baked (128, 176, 208, 20) volume, with the bake's time and
+     CUDA-event and device times; (b)
      `Evaluator` in all three modes, 3 requests each (ms/request, rays/s),
      the `tiled` request against its twin path on the same baked volume,
      launches of K4, K6, K6b and K8; (c) `Evaluator.evaluate` on an
@@ -83,7 +91,11 @@ the render's gradient in its source images (K4's backward).
      warp in the fine-tune loss's own graph (a hook on the warp's output),
      held to a float64 run of the twin, with CUDA-event times of kernel,
      twin and `grid_sampler_2d_backward` (the 3 views on K4's grid, border
-     padding), and the same on one 16384 x 128 serving chunk; (b) d loss /
+     padding), their device times (`torch.profiler`: by kernel, and of
+     the kernel on each view alone), and the same on one 16384 x 128
+     serving chunk and on one 16384 x 128 chunk whose samples all lie
+     outside view 2 (rays through its centre right of its frame, so every
+     sample clamps onto its border column); (b) d loss /
      d imgs of the fine-tune loss through `render_rays(training=True)`
      (K4, K5, K7 forward and backward), from one state and draws, on the
      kernels, on the twins and on the twins in float64 (launch counters
@@ -95,8 +107,9 @@ the render's gradient in its source images (K4's backward).
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
 On success the last two lines are one JSON object of per-kernel results
-(error against the plain twin, kernel, twin and library-call times, the
-bound the card's peaks set, launches on the kernel's path) and
+(error against the plain twin, kernel, twin and library-call times, device
+times where measured, the bound the card's peaks set, launches on the
+kernel's path) and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -367,10 +380,18 @@ def report(phase, kernels, failures):
     for k in kernels:
         lib = "none" if k["library_ms"] is None else \
             f"{k['library_ms']:.3f} ms"
+        dev = ""
+        if k.get("device_ms") is not None:
+            dev = f"; device (torch.profiler) kernel {k['device_ms']:.4f} ms"
+            if k.get("device_library_ms") is not None:
+                dev += f", library {k['device_library_ms']:.4f} ms"
+            dev += (f"; events - device {k['ms'] - k['device_ms']:.4f} "
+                    f"ms")
         print(f"[{phase} kernel] {k['name']}: max_abs_err "
               f"{k['max_abs_err']:.3e} (tol {k['tol']:.1e}), kernel "
               f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
-              f"{lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+              f"{lib}, bound {k['bound_ms']:.4f} ms ({k['bound_by']})"
+              f"{dev}")
         check(k["max_abs_err"] <= k["tol"],
               f"{k['name']} disagrees with its plain twin", failures)
 
@@ -420,11 +441,14 @@ class StepClock:
 def kernel_entry(kernels, name, source, replaces, err, tol, fn_k, fn_p,
                  fn_lib, n_bytes, flops, **extra):
     """Append one kernels-line entry: the error against the twin, CUDA-event
-    times of kernel, twin and library call, and the bound."""
+    times of kernel, twin and library call, the device times of kernel and
+    library call (torch.profiler), and the bound."""
     kernels.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, max_abs_err=err, tol=tol,
                         ms=cuda_ms(fn_k), plain_ms=cuda_ms(fn_p),
                         library_ms=fn_lib and cuda_ms(fn_lib),
+                        device_ms=device_total(fn_k),
+                        device_library_ms=fn_lib and device_total(fn_lib),
                         **bound(n_bytes, flops), **extra))
 
 
@@ -474,6 +498,26 @@ def k4_library_inputs(pts, w2cs, intrs, imgs):
     grids = color_warp_grids(pts, w2cs, intrs, H_, W_)
     return (imgs.permute(0, 3, 1, 2).contiguous(),
             grids.reshape(V, -1, 1, 2).contiguous())
+
+
+def k4_device_times(imgs01, pose_t, requests):
+    """Device ms of K4's forward and of its library call (`F.grid_sample`
+    of the 3 views on K4's grid) on phase 3's inputs: the serving scene's
+    images and cameras and the first chunk of the second request."""
+    import torch
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.sampling import ray_marcher
+    with torch.no_grad():
+        pts = ray_marcher(requests[1][:CHUNK], N_SAMPLES)[0].contiguous()
+        k4 = (pts, pose_t["w2cs"], pose_t["intrinsics"],
+              imgs01.contiguous())
+        inp, grid = k4_library_inputs(*k4)
+        return dict(
+            device_ms=device_total(lambda: color_warp(*k4)),
+            device_library_ms=device_total(
+                lambda: torch.nn.functional.grid_sample(
+                    inp, grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)))
 
 
 def finetune_system(dev, mlp, mvsnet, scene, extra=""):
@@ -641,14 +685,30 @@ def finetune_phase(dev, mlp, mvsnet, failures):
           f"{FT_VIEWS} views, volume {tuple(vol.shape)}, set up in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- (a) K5 and K7 against their twins at the step's shapes
     rays, rgbs = first_batch(scene, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # ---- (a) one step on the kernels, one on the twins, same state
+    plain_step_ms = step_parity(6, system, rays, rgbs, gen, failures)
+
+    # ---- (b) the main path: fit, launch counters reset just before
+    counters = {"K4 color_warp": (color_warp, "launches"),
+                **k5_counters(),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    launches, _ = timed_fit(6, system, counters, plain_step_ms, failures)
+
+    # ---- (c) K5 and K7 against their twins at the step's shapes, after
+    # the timed steps: their device times come from torch.profiler, which
+    # can leave CUPTI attached to the process and slow every later launch
+    # on the host, and with it the host-bound step that (b) times
+    gen.manual_seed(SEED)
     kernels = []
     src7 = "mvsnerf_tpu_torch/csrc/mlp_v0_train.cu"
     rep7 = "mvsnerf_tpu/ops/pallas_mlp.py:318"
     with torch.no_grad():
-        k5_entries(kernels, vol.detach(), step_ndc(system, rays, gen), gen)
+        k5_entries(kernels, system.volume.detach(),
+                   step_ndc(system, rays, gen), gen)
         x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
         m = system.mlp
         packed = pack_v0_weights(m)
@@ -703,16 +763,6 @@ def finetune_phase(dev, mlp, mvsnet, failures):
         del x, x_r, scratch, o_k, o_p, g7, dx_k, dw_k, dx_p, dw_p, dx_64, \
             dw_64
     report(6, kernels, failures)
-
-    # ---- (b) one step on the kernels, one on the twins, same state
-    plain_step_ms = step_parity(6, system, rays, rgbs, gen, failures)
-
-    # ---- (c) the main path: fit, launch counters reset just before
-    counters = {"K4 color_warp": (color_warp, "launches"),
-                **k5_counters(),
-                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
-                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
-    launches, _ = timed_fit(6, system, counters, plain_step_ms, failures)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -1315,15 +1365,28 @@ def k10_kernel_entries(system, batch, draws, failures):
             else:
                 tol = TOL_K10 * (1 + float(out_p.abs().max()))
             b = k10_call_bound(op, args, out_k)
+            library = k10_library_call(kind, direction, rec)
             times = [cuda_ms(lambda: kernel_of[op](*args)),
                      cuda_ms(lambda: plain_of[op](*args)),
-                     cuda_ms(k10_library_call(kind, direction, rec))]
+                     cuda_ms(library)]
+            dev = ""
+            # the stride-2 calls, whose CUDA-event times sit close to
+            # cuDNN's, are also timed on the device
+            if key == "s2":
+                d = (device_total(lambda: kernel_of[op](*args)),
+                     device_total(library))
+                s = sums[key]
+                s["device_ms"] = s.get("device_ms", 0.0) + d[0]
+                s["device_library_ms"] = \
+                    s.get("device_library_ms", 0.0) + d[1]
+                dev = (f"; device (torch.profiler) kernel {d[0]:.4f} ms, "
+                       f"cuDNN {d[1]:.4f} ms")
             print(f"[8 kernel] {layer} {direction} ({key}, "
                   f"{'x'.join(map(str, args[0].shape[1:]))} -> "
                   f"{'x'.join(map(str, out_k.shape[1:]))}): max_abs_err "
                   f"{err:.3e} (tol {tol:.1e}), kernel {times[0]:.3f} ms, "
                   f"plain {times[1]:.3f} ms, cuDNN {times[2]:.3f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}){dev}")
             check(err <= tol, f"K10 {key} disagrees with its twin on "
                               f"{layer} {direction}", failures)
             s = sums[key]
@@ -1337,17 +1400,20 @@ def k10_kernel_entries(system, batch, draws, failures):
     entries = []
     for key, (name, replaces) in K10_ENTRIES.items():
         s = sums[key]
+        device = {k: s[k] for k in ("device_ms", "device_library_ms")
+                  if k in s}
         entries.append(dict(
             name=name, route="cuda",
             source="mvsnerf_tpu_torch/csrc/conv3d.cu", replaces=replaces,
             max_abs_err=s["max_abs_err"], tol=s["tol"], ms=s["ms"],
             plain_ms=s["plain_ms"], library_ms=s["library_ms"],
             bound_ms=s["bound_ms"],
-            bound_by=max(s["by"], key=s["by"].get)))
+            bound_by=max(s["by"], key=s["by"].get), **device))
+        dev = "".join(f", {k} {v:.4f}" for k, v in device.items())
         print(f"[8 kernel] {name}, summed over one step's "
               f"{K10_PER_STEP[key]} calls: kernel {s['ms']:.3f} ms, plain "
               f"{s['plain_ms']:.3f} ms, cuDNN {s['library_ms']:.3f} ms, "
-              f"bound {s['bound_ms']:.4f} ms; worst max_abs_err "
+              f"bound {s['bound_ms']:.4f} ms{dev}; worst max_abs_err "
               f"{s['max_abs_err']:.3e} (tol {s['tol']:.1e})")
     return entries
 
@@ -1765,22 +1831,32 @@ def image_grads(system, samples, rgbs, twins, f64=False):
 
 def device_ms(fn, reps=5):
     """Device time per call of `fn` by kernel name (torch.profiler), ms,
-    after one warm-up call."""
+    after one warm-up call. A profile that caught no device activity is
+    taken again, up to twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3 / reps
+        if by_name:
+            break
     return by_name
+
+
+def device_total(fn, reps=5):
+    """Device ms per call of `fn`, summed over every kernel, copy and fill
+    it launches (torch.profiler)."""
+    return sum(device_ms(fn, reps).values())
 
 
 def k4_bwd_compare(g, pts, w2cs, intrs, imgs):
@@ -1823,6 +1899,7 @@ def k4_bwd_compare(g, pts, w2cs, intrs, imgs):
             t for name, t in device_ms(lambda: k4.color_warp_bwd_kernel(
                 g_v, *one, (1, *imgs.shape[1:]))).items()
             if "color_warp_bwd" in name))
+    device_library = device_ms(lib)
     return dict(
         max_abs_err=max_err(b_k, b_p), tol=tol,
         ms=cuda_ms(lambda: k4.color_warp_bwd_kernel(g, pts, w2cs, intrs,
@@ -1830,6 +1907,9 @@ def k4_bwd_compare(g, pts, w2cs, intrs, imgs):
         plain_ms=cuda_ms(grad_only(
             lambda: k4.color_warp_plain(pts, w2cs, intrs, im_r), im_r, g)),
         library_ms=cuda_ms(lib),
+        # the kernel with its zeroing, the library call with its fill
+        device_ms=sum(dev_k.values()),
+        device_library_ms=sum(device_library.values()),
         # per sample and view: the projection (~30) and 4 taps of 3
         # channels, a multiply and an add each
         **bound(nbytes(g, pts, w2cs, intrs, b_k), n * V * (30 + 4 * 3 * 2)),
@@ -1837,7 +1917,7 @@ def k4_bwd_compare(g, pts, w2cs, intrs, imgs):
                    err_f64_twin=max_err(b_p.double(), b_64),
                    max_abs=float(b_64.abs().max()), rerun=rerun,
                    library_vs_twin=lib_err, samples=n, device_kernel=dev_k,
-                   device_library=device_ms(lib), device_per_view=per_view))
+                   device_library=device_library, device_per_view=per_view))
 
 
 def print_k4_bwd_device(x):
@@ -1849,6 +1929,44 @@ def print_k4_bwd_device(x):
     print("   K4 bwd device ms of the kernel on each view alone: " +
           ", ".join(f"view {v} {t:.4f}"
                     for v, t in enumerate(x["device_per_view"])))
+
+
+def outside_view_points(w2cs, intrs, view, n_rays, n_samples):
+    """(n_rays, n_samples, 3) world points that all project right of view
+    `view`'s frame: rays through that camera's centre at pixels u in
+    [W + 8, W + 264], v in [-64, H + 64], each sampled at n_samples
+    depths in NEAR_FAR. Each ray's samples land on one point of the view's
+    image plane, and every one clamps onto its border column: the worst
+    case for the backward's atomics."""
+    import torch
+    K = intrs[view].double()
+    c2w = torch.linalg.inv(w2cs[view].double())
+    side = math.isqrt(n_rays)
+    u = torch.linspace(W + 8, W + 264, side, dtype=torch.float64,
+                       device=K.device)
+    v = torch.linspace(-64, H + 64, n_rays // side, dtype=torch.float64,
+                       device=K.device)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    z = torch.linspace(*NEAR_FAR, n_samples, dtype=torch.float64,
+                       device=K.device)
+    x = (uu.reshape(-1, 1) - K[0, 2]) / K[0, 0] * z
+    y = (vv.reshape(-1, 1) - K[1, 2]) / K[1, 1] * z
+    cam = torch.stack([x, y, z.expand_as(x), torch.ones_like(x)], -1)
+    return (cam @ c2w.T)[..., :3].float().contiguous()
+
+
+def print_k4_bwd_chunk(what, x):
+    """One line of `k4_bwd_compare`'s numbers on a chunk, then its device
+    times."""
+    print(f"[10 kernel] K4 color_warp (bwd) on {what}: max_abs_err "
+          f"{x['max_abs_err']:.3e} (tol {x['tol']:.1e}), kernel "
+          f"{x['ms']:.3f} ms, plain {x['plain_ms']:.3f} ms, library "
+          f"{x['library_ms']:.3f} ms, bound {x['bound_ms']:.4f} ms "
+          f"({x['bound_by']}); device kernel {x['device_ms']:.4f} ms, "
+          f"library {x['device_library_ms']:.4f} ms; vs float64 kernel "
+          f"{x['extra']['err_f64_kernel']:.3e} / twin "
+          f"{x['extra']['err_f64_twin']:.3e}")
+    print_k4_bwd_device(x["extra"])
 
 
 def image_grad_phase(dev, mlp, mvsnet, requests, earlier, failures):
@@ -1914,19 +2032,28 @@ def image_grad_phase(dev, mlp, mvsnet, requests, earlier, failures):
     g_c = torch.randn((*pts_c.shape[:2], 4 * len(w2cs)), device=dev,
                       generator=gen.manual_seed(SEED + 10))
     chunk = k4_bwd_compare(g_c, pts_c, w2cs, intrs, imgs)
-    print(f"[10 kernel] K4 color_warp (bwd) on one {CHUNK} x {N_SAMPLES} "
-          f"chunk: max_abs_err {chunk['max_abs_err']:.3e} (tol "
-          f"{chunk['tol']:.1e}), kernel {chunk['ms']:.3f} ms, plain "
-          f"{chunk['plain_ms']:.3f} ms, library {chunk['library_ms']:.3f} "
-          f"ms, bound {chunk['bound_ms']:.4f} ms ({chunk['bound_by']}); vs "
-          f"float64 kernel {chunk['extra']['err_f64_kernel']:.3e} / twin "
-          f"{chunk['extra']['err_f64_twin']:.3e}")
-    print_k4_bwd_device(chunk["extra"])
+    print_k4_bwd_chunk(f"one {CHUNK} x {N_SAMPLES} chunk", chunk)
     check(chunk["max_abs_err"] <= chunk["tol"],
           "K4 bwd disagrees with its twin on a serving chunk", failures)
-    entry["serving_chunk"] = {k: chunk[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
-    del g, g_c, pts_c, captured, res, chunk
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "device_ms", "device_library_ms")
+    entry["serving_chunk"] = {k: chunk[k] for k in keys}
+    # the same on a chunk whose samples all clamp onto view 2's border
+    pts_o = outside_view_points(w2cs, intrs, 2, CHUNK, N_SAMPLES)
+    grid2 = k4.color_warp_grids(pts_o, w2cs, intrs, *imgs.shape[1:3])[2]
+    outside = bool((grid2.abs() >= 1).any(-1).all())
+    print(f"   all-clamped chunk: every sample outside view 2: {outside}")
+    check(outside, "the all-clamped chunk has samples inside view 2",
+          failures)
+    g_o = torch.randn(g_c.shape, device=dev,
+                      generator=gen.manual_seed(SEED + 13))
+    clamped = k4_bwd_compare(g_o, pts_o, w2cs, intrs, imgs)
+    print_k4_bwd_chunk("the all-clamped chunk", clamped)
+    check(clamped["max_abs_err"] <= clamped["tol"],
+          "K4 bwd disagrees with its twin on the all-clamped chunk",
+          failures)
+    entry["clamped_chunk"] = {k: clamped[k] for k in keys}
+    del g, g_c, pts_c, captured, res, chunk, pts_o, g_o, grid2, clamped
     torch.cuda.empty_cache()
 
     # ---- (b) d loss / d imgs three ways from one state and draws: up to
@@ -2092,6 +2219,9 @@ def main():
         k4 = (pts.contiguous(), w2cs, intrs, imgs01.contiguous())
         colors, colors_p = color_warp(*k4), color_warp_plain(*k4)
         inp4, grid4 = k4_library_inputs(*k4)
+        masks_equal = torch.equal(colors[..., 3::4], colors_p[..., 3::4])
+        print(f"   K4 masks equal to the twin's: {masks_equal}")
+        check(masks_equal, "K4's masks differ from the twin's", failures)
         kernels.append(dict(
             name="K4 color_warp", route="cuda",
             source="mvsnerf_tpu_torch/csrc/color_warp.cu",
@@ -2128,7 +2258,8 @@ def main():
                     mlp_flops(k6[0][..., 0].numel()))))
         print(f"   K6 inputs: acc mean {float(r_p['acc'].mean()):.4f}, "
               f"rgb std {float(r_p['rgb'].std()):.4f}")
-        del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p, inp4, grid4
+        del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p, inp4, \
+            grid4
     report(3, kernels, failures)
     torch.cuda.empty_cache()
     # K4 backward launches by phase, from here on (phase 10 reads them)
@@ -2243,6 +2374,19 @@ def main():
     torch.cuda.empty_cache()
     kernels.append(image_grad_phase(dev, mlp, mvsnet, requests, k4_bwd,
                                     failures))
+    # ---- K4's forward on the device, on phase 3's inputs, taken last:
+    # torch.profiler can leave CUPTI attached to the process and slow
+    # every later launch on the host, and with it the host-bound fine-tune
+    # step that phase 6 times
+    k4_entry = next(k for k in kernels if k["name"] == "K4 color_warp")
+    with torch.no_grad():
+        _, imgs01, _, pose_t = ev.build_volume(imgs_norm, projs, NEAR_FAR,
+                                               pose_src)
+    k4_entry.update(k4_device_times(imgs01, pose_t, requests))
+    print(f"[3 kernel] K4 color_warp on the device (torch.profiler, after "
+          f"phase 10): kernel {k4_entry['device_ms']:.4f} ms, library "
+          f"{k4_entry['device_library_ms']:.4f} ms; events - device "
+          f"{k4_entry['ms'] - k4_entry['device_ms']:.4f} ms")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

@@ -151,5 +151,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream on `t`'s device, read
+    straight from PyTorch's C binding: `torch.cuda.current_stream` builds a
+    Stream object on each call, host time that every launch would pay."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -19,8 +19,17 @@ zero for it and nothing in the port trains the geometry. The twin
 
 Replaces mvsnerf_tpu/ops/pallas_sweep.py:258 `bilinear_warp_pallas`
 (forward) and :147 `_bwd_kernel` (its VJP, via `_warp_bwd_rule` :316) as
-reached from render/renderer.py:77-106. What bounds it on the H100: the
-forward's 48 B-per-sample output write; the backward's f32 atomics.
+reached from render/renderer.py:77-106. Both kernels run one thread per
+(sample, view) pair, so each thread stores (or, backward, loads) one
+aligned 16-byte [R, G, B, mask] slot and a warp's access is contiguous.
+What bounds them on the H100: the forward, its 16 B per sample and view of
+output write and the projection's IEEE divides; the backward, its atomics
+into the image gradient. Lanes of a warp with the same tap base first sum
+their products with shuffles, and one lane adds each tap's three channels
+with one float4 atomic into an RGBA-padded gradient, which the C call
+zeroes on the same stream; the wrapper returns a (V, H, W, 3) view of its
+RGB. On a card the wrappers' host time (the checks, the allocation, the
+ctypes call) exceeds the forward's device time at the fine-tune batch.
 """
 
 from __future__ import annotations
@@ -29,6 +38,9 @@ import torch
 
 from .._build import check, library, stream_of
 from .interp import grid_sample_2d
+
+_F32 = torch.float32
+MAX_VIEWS = 256  # the kernels' block of 256 threads holds >= 1 sample
 
 
 def color_warp_grids(pts_world, w2cs, intrinsics, H: int, W: int):
@@ -74,33 +86,59 @@ def color_warp_bwd_plain(g, pts_world, w2cs, intrinsics, imgs):
         return torch.autograd.grad(out, im, g)[0]
 
 
-def _check_args(pts_world, w2cs, intrinsics, imgs):
-    V, H, W, _ = imgs.shape
-    dev = pts_world.device
-    if pts_world.dim() != 3 or pts_world.shape[-1] != 3 or \
-            w2cs.shape != (V, 4, 4) or intrinsics.shape != (V, 3, 3) or \
-            imgs.shape[-1] != 3 or H < 2 or W < 2:
+def _check_args(pts_world, w2cs, intrinsics, imgs, g=None):
+    """Refuse (ValueError) what K4's kernels cannot take: shapes other than
+    pts_world (N, S, 3), w2cs (V, 4, 4), intrinsics (V, 3, 3) and imgs
+    (V, H, W, 3) with H, W >= 2 (for the backward, whose cotangent is `g`,
+    imgs is its (V, H, W, 4) RGBA-padded gradient); a tensor that is not
+    contiguous float32 on pts_world's device; N * S >= 2**31 samples; more
+    than 256 views; a cotangent other than a contiguous, 16-byte aligned
+    float32 (N, S, 4V) on that device; a device other than CUDA. Returns
+    (N, S, V, H, W)."""
+    ps, ims = pts_world.shape, imgs.shape
+    if len(ps) != 3 or len(ims) != 4 or ps[2] != 3 or \
+            ims[3] != (3 if g is None else 4) or ims[1] < 2 or \
+            ims[2] < 2 or w2cs.shape != (ims[0], 4, 4) or \
+            intrinsics.shape != (ims[0], 3, 3):
         raise ValueError(
             f"color_warp kernel: bad shapes pts {tuple(pts_world.shape)}, "
             f"w2cs {tuple(w2cs.shape)}, intrinsics "
             f"{tuple(intrinsics.shape)}, imgs {tuple(imgs.shape)}")
-    for name, t in (("pts_world", pts_world), ("w2cs", w2cs),
-                    ("intrinsics", intrinsics), ("imgs", imgs)):
-        if t.device != dev or t.dtype != torch.float32 or \
-                not t.is_contiguous():
-            raise ValueError(f"color_warp kernel: {name} must be contiguous "
-                             f"float32 on {dev}")
-    N, S, _ = pts_world.shape
+    dev = pts_world.device
+    if not (pts_world.dtype is _F32 and w2cs.dtype is _F32 and
+            intrinsics.dtype is _F32 and imgs.dtype is _F32 and
+            w2cs.device == dev and intrinsics.device == dev and
+            imgs.device == dev and pts_world.is_contiguous() and
+            w2cs.is_contiguous() and intrinsics.is_contiguous() and
+            imgs.is_contiguous()):
+        for name, t in (("pts_world", pts_world), ("w2cs", w2cs),
+                        ("intrinsics", intrinsics), ("imgs", imgs)):
+            if t.device != dev or t.dtype is not _F32 or \
+                    not t.is_contiguous():
+                raise ValueError(f"color_warp kernel: {name} must be "
+                                 f"contiguous float32 on {dev}")
+    N, S, _ = ps
+    V, H, W, _ = ims
     if N * S >= 2 ** 31:
         raise ValueError(f"color_warp kernel: {N * S} samples exceed int32")
+    if V > MAX_VIEWS:
+        raise ValueError(f"color_warp kernel: {V} views exceed {MAX_VIEWS}")
+    if g is not None and (g.shape != (N, S, 4 * V) or g.dtype is not _F32
+                          or g.device != dev or not g.is_contiguous() or
+                          g.data_ptr() % 16):
+        raise ValueError(f"color_warp_bwd kernel: bad cotangent "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device} (must "
+                         f"be contiguous, 16-byte aligned float32 "
+                         f"{(N, S, 4 * V)} on {dev})")
+    if dev.type != "cuda":
+        raise ValueError(f"color_warp kernel: tensors on {dev}, not CUDA")
+    return N, S, V, H, W
 
 
 def color_warp_kernel(pts_world, w2cs, intrinsics, imgs):
     """K4 forward on the card: (N, S, 4V) colours and masks (no
     autograd)."""
-    _check_args(pts_world, w2cs, intrinsics, imgs)
-    V, H, W, _ = imgs.shape
-    N, S, _ = pts_world.shape
+    N, S, V, H, W = _check_args(pts_world, w2cs, intrinsics, imgs)
     out = torch.empty((N, S, 4 * V), device=pts_world.device)
     rc = library().color_warp(
         pts_world.data_ptr(), w2cs.data_ptr(), intrinsics.data_ptr(),
@@ -113,23 +151,22 @@ def color_warp_kernel(pts_world, w2cs, intrinsics, imgs):
 
 def color_warp_bwd_kernel(g, pts_world, w2cs, intrinsics, img_shape):
     """K4 backward on the card: the `img_shape` (V, H, W, 3) image
-    gradient of the (N, S, 4V) cotangent `g`, zeroed then scattered into
-    with atomics."""
-    gimgs = torch.zeros(img_shape, device=g.device)
-    _check_args(pts_world, w2cs, intrinsics, gimgs)
-    V, H, W, _ = img_shape
-    N, S, _ = pts_world.shape
-    if g.shape != (N, S, 4 * V) or g.dtype != torch.float32 or \
-            g.device != gimgs.device or not g.is_contiguous():
-        raise ValueError(f"color_warp_bwd kernel: bad cotangent "
-                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    gradient of the (N, S, 4V) cotangent `g` (contiguous, 16-byte
+    aligned), zeroed and scattered into by one C call. The kernel adds a
+    tap's three channels with one float4 atomic, so the gradient is made
+    RGBA-padded and returned as a (V, H, W, 3) view of its RGB."""
+    if len(img_shape) != 4 or img_shape[3] != 3:
+        raise ValueError(f"color_warp_bwd kernel: bad image shape "
+                         f"{tuple(img_shape)}")
+    gimgs = torch.empty((*img_shape[:3], 4), device=pts_world.device)
+    N, S, V, H, W = _check_args(pts_world, w2cs, intrinsics, gimgs, g)
     rc = library().color_warp_bwd(
         g.data_ptr(), pts_world.data_ptr(), w2cs.data_ptr(),
         intrinsics.data_ptr(), gimgs.data_ptr(), N * S, V, H, W,
         stream_of(g))
     check(rc, "color_warp_bwd")
     color_warp.bwd_launches += 1
-    return gimgs
+    return gimgs[..., :3]
 
 
 class _ColorWarp(torch.autograd.Function):
@@ -143,8 +180,11 @@ class _ColorWarp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pts_world, w2cs, intrinsics = ctx.saved_tensors
+        g = g.contiguous()
+        if g.data_ptr() % 16:  # a view into a larger buffer
+            g = g.clone()
         return None, None, None, color_warp_bwd_kernel(
-            g.contiguous(), pts_world, w2cs, intrinsics, ctx.img_shape)
+            g, pts_world, w2cs, intrinsics, ctx.img_shape)
 
 
 def color_warp(pts_world, w2cs, intrinsics, imgs):
@@ -157,15 +197,16 @@ def color_warp(pts_world, w2cs, intrinsics, imgs):
     Returns:
         (N, S, 4V) float32.
     """
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() and (pts_world.requires_grad or
+                                    w2cs.requires_grad or
+                                    intrinsics.requires_grad):
         wanted = [name for name, t in (("pts_world", pts_world),
                                        ("w2cs", w2cs),
                                        ("intrinsics", intrinsics))
                   if t.requires_grad]
-        if wanted:
-            raise NotImplementedError(
-                f"color_warp: no gradient in {', '.join(wanted)} (only imgs "
-                "is differentiable; detach the geometry)")
+        raise NotImplementedError(
+            f"color_warp: no gradient in {', '.join(wanted)} (only imgs "
+            "is differentiable; detach the geometry)")
     if pts_world.device.type == "cpu":
         return color_warp_plain(pts_world, w2cs, intrinsics, imgs)
     if pts_world.device.type != "cuda":
