@@ -13,15 +13,20 @@ the render's gradient in its source images (K4's backward).
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
   2. build: compiles the hand-written kernels under
-     mvsnerf_tpu_torch/csrc/ (nvcc, sm_90a) and prints ptxas's register
-     report;
+     mvsnerf_tpu_torch/csrc/ (nvcc, sm_90a) and prints ptxas's register,
+     spill and shared-memory report, the render body's dynamic shared
+     memory and the tensor-core instructions (HMMA) in its SASS
+     (cuobjdump), which must be there in all three forms;
   3. kernels: K1 (sweep), K4 (colour warp) and K6 (fused render) against
      their plain PyTorch twins on the path's own inputs, at the path's
      shapes (a 41x128x176x208 cost volume, 16384 rays x 128 samples),
      with max abs error and CUDA-event times of kernel and twin (and for
      K4 of one `F.grid_sample` of the 3 views on its grid and K4's masks
-     against the twin's; the device times of K4 and `F.grid_sample`, from
-     `torch.profiler`, are taken on the same inputs after phase 10);
+     against the twin's; for K6 its and the f32 twin's distance from a
+     float64 run of the twin, and its bound at the TF32 tensor-core peak
+     for its 3 passes beside the f32 one; the device times of K4,
+     `F.grid_sample` and K6, from `torch.profiler`, are taken on the same
+     inputs after phase 10);
   4. slice: `Evaluator.build_volume` -> a (128, 176, 208, 8) volume, then
      3 full 640x512 requests at 128 samples, each rendered in 'chunked'
      (K8) and 'hybrid' (K6) mode; checks finiteness, hybrid vs chunked rgb
@@ -74,8 +79,9 @@ the render's gradient in its source images (K4's backward).
   9. the colour-baked volume and the eval and video entry points: (a) K6b
      (the baked render) and K8 (PE + MLP + compositing from gathered
      features) against their twins on one 16384-ray chunk at 128 samples
-     over the baked (128, 176, 208, 20) volume, with the bake's time and
-     CUDA-event and device times; (b)
+     over the baked (128, 176, 208, 20) volume, with the bake's time,
+     CUDA-event and device times, and, as for K6, the float64 distances
+     and both bounds; (b)
      `Evaluator` in all three modes, 3 requests each (ms/request, rays/s),
      the `tiled` request against its twin path on the same baked volume,
      launches of K4, K6, K6b and K8; (c) `Evaluator.evaluate` on an
@@ -312,22 +318,50 @@ def max_err(a, b):
 
 
 # the H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# device-memory bytes/s, float32 FLOP/s outside the tensor cores and dense
+# TF32 FLOP/s on them
+HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# tensor-core passes of the render body's MLP (3xTF32, csrc/mlp_tc.cuh)
+RENDER_TC_PASSES = 3
+
+
+def sass_mma_counts(lib_path):
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of the built
+    library, by mangled name, from cuobjdump's SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, tc_passes=0):
     """The least time the card could take for a call: the larger of its
     bytes (each input read once, each output written once) over the
-    memory rate and its operations over the f32 peak."""
+    memory rate and its operations over the f32 peak, or, for a kernel
+    that runs them on the tensor cores in `tc_passes` TF32 passes, those
+    passes' operations over the TF32 peak (the f32 bound then beside it as
+    `bound_f32_ms`)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_f32 = flops / F32_FLOPS * 1e3
+    t_ops = tc_passes * flops / TF32_FLOPS * 1e3 if tc_passes else t_f32
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if tc_passes:
+        out["bound_f32_ms"] = max(t_bytes, t_f32)
+    return out
 
 
 def sweep_flops(V, C, voxels, backward=False):
@@ -381,8 +415,14 @@ def report(phase, kernels, failures):
         lib = "none" if k["library_ms"] is None else \
             f"{k['library_ms']:.3f} ms"
         dev = ""
+        if "bound_f32_ms" in k:
+            dev += (f" ({RENDER_TC_PASSES}xTF32; f32 bound "
+                    f"{k['bound_f32_ms']:.4f} ms)")
+        if "max_abs_err_f64" in k:
+            dev += (f"; vs a float64 twin: kernel {k['max_abs_err_f64']:.3e}"
+                    f", f32 twin {k['plain_err_f64']:.3e}")
         if k.get("device_ms") is not None:
-            dev = f"; device (torch.profiler) kernel {k['device_ms']:.4f} ms"
+            dev += f"; device (torch.profiler) kernel {k['device_ms']:.4f} ms"
             if k.get("device_library_ms") is not None:
                 dev += f", library {k['device_library_ms']:.4f} ms"
             dev += (f"; events - device {k['ms'] - k['device_ms']:.4f} "
@@ -439,7 +479,7 @@ class StepClock:
 
 
 def kernel_entry(kernels, name, source, replaces, err, tol, fn_k, fn_p,
-                 fn_lib, n_bytes, flops, **extra):
+                 fn_lib, n_bytes, flops, tc_passes=0, **extra):
     """Append one kernels-line entry: the error against the twin, CUDA-event
     times of kernel, twin and library call, the device times of kernel and
     library call (torch.profiler), and the bound."""
@@ -449,7 +489,17 @@ def kernel_entry(kernels, name, source, replaces, err, tol, fn_k, fn_p,
                         library_ms=fn_lib and cuda_ms(fn_lib),
                         device_ms=device_total(fn_k),
                         device_library_ms=fn_lib and device_total(fn_lib),
-                        **bound(n_bytes, flops), **extra))
+                        **bound(n_bytes, flops, tc_passes), **extra))
+
+
+def f64_anchor(out_k, out_p, run_f64):
+    """The render forms' distance from a float64 run of their twin
+    (`run_f64()`, on a float64 copy of the MLP), beside the f32 twin's own:
+    the evidence for the 3xTF32 split."""
+    ref = run_f64()
+    keys = ("rgb", "depth", "acc")
+    return {"max_abs_err_f64": max(max_err(out_k[k], ref[k]) for k in keys),
+            "plain_err_f64": max(max_err(out_p[k], ref[k]) for k in keys)}
 
 
 def k5_entries(kernels, v, ndc, gen, suffix=""):
@@ -498,6 +548,29 @@ def k4_library_inputs(pts, w2cs, intrs, imgs):
     grids = color_warp_grids(pts, w2cs, intrs, H_, W_)
     return (imgs.permute(0, 3, 1, 2).contiguous(),
             grids.reshape(V, -1, 1, 2).contiguous())
+
+
+def k6_inputs(ev, mlp, src, requests):
+    """Phase 3's K6 arguments: the first 16384 rays of request 1 at 128
+    samples over the scene's (128, 176, 208, 8) volume, with K4's colours
+    of the 3 views."""
+    import torch
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.geometry import get_ndc_coordinate
+    from mvsnerf_tpu_torch.ops.sampling import ray_marcher
+    from mvsnerf_tpu_torch.render.renderer import gen_dir_feature
+    volume, imgs01, nf, pose_t = ev.build_volume(src[0], src[1], NEAR_FAR,
+                                                 src[2])
+    w2cs, intrs = pose_t["w2cs"], pose_t["intrinsics"]
+    pts, _, rays_d, z_vals = ray_marcher(requests[1][:CHUNK], N_SAMPLES)
+    colors = color_warp(pts.contiguous(), w2cs, intrs, imgs01.contiguous())
+    ndc = get_ndc_coordinate(w2cs[0], intrs[0], pts,
+                             torch.tensor([W - 1.0, H - 1.0],
+                                          device=pts.device),
+                             near=nf[0], far=nf[1], pad=PAD)
+    unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return (ndc.contiguous(), z_vals.contiguous(), colors,
+            gen_dir_feature(w2cs[0], unit).contiguous(), volume, mlp)
 
 
 def k4_device_times(imgs01, pose_t, requests):
@@ -1630,6 +1703,7 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         dirs = gen_dir_feature(w2cs[0], unit).contiguous()
         n_samp = ndc[..., 0].numel()
+        mlp64 = copy.deepcopy(mlp).double()
         b_args = (ndc, z, None, dirs, vol20, mlp)
         r_k, r_p = rf.render_v0(*b_args), rf.render_v0_plain(*b_args)
         kernel_entry(kernels, "K6b render_v0 (baked)", src6,
@@ -1638,7 +1712,11 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
                      lambda: rf.render_v0(*b_args),
                      lambda: rf.render_v0_plain(*b_args), None,
                      nbytes(ndc, z, dirs, *r_k.values()) +
-                     touched_volume_bytes(vol20, ndc), mlp_flops(n_samp))
+                     touched_volume_bytes(vol20, ndc), mlp_flops(n_samp),
+                     RENDER_TC_PASSES, **f64_anchor(
+                         r_k, r_p, lambda: rf.render_v0_plain(
+                             ndc.double(), z.double(), None, dirs.double(),
+                             vol20.double(), mlp64)))
         colors = color_warp(pts.contiguous(), w2cs, intrs,
                             imgs01.contiguous())
         feats = torch.cat([index_point_feature(volume, ndc), colors],
@@ -1652,12 +1730,15 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
                      lambda: rf.render_v0_feats(*f_args),
                      lambda: rf.render_v0_feats_plain(*f_args), None,
                      nbytes(ndc, feats, dirs, z, *f_k.values()),
-                     mlp_flops(n_samp))
+                     mlp_flops(n_samp), RENDER_TC_PASSES, **f64_anchor(
+                         f_k, f_p, lambda: rf.render_v0_feats_plain(
+                             ndc.double(), feats.double(), dirs.double(),
+                             z.double(), mlp64)))
         w_gap = max_err(f_k["weights"].sum(-1), f_k["acc"])
         print(f"   K6b inputs: acc mean {float(r_p['acc'].mean()):.4f}; "
               f"K8: |sum of weights - acc| max {w_gap:.2e}")
         del pts, rays_d, z, ndc, dirs, colors, feats, r_k, r_p, f_k, f_p, \
-            b_args, f_args, vol20
+            b_args, f_args, vol20, mlp64
     report(9, kernels, failures)
 
     # ---- (b) the Evaluator in all three modes, launch counters reset
@@ -2171,6 +2252,13 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("   ptxas:", line.strip())
+    print(f"   render body (K6, K6b, K8): "
+          f"{_build.library().render_v0_smem_bytes()} bytes of dynamic shared "
+          f"memory a block, beside ptxas's static report")
+    mma = {name: n for name, n in sass_mma_counts(
+        _build.library()._name).items() if "render_v0_kernel" in name}
+    print(f"[2 sass] tensor-core instructions (HMMA / HGMMA) in the render "
+          f"body's forms: {mma}")
 
     gen = torch.Generator().manual_seed(SEED)
     mlp = seeded_init_(MVSNeRF(device=dev), gen).eval()
@@ -2184,6 +2272,8 @@ def main():
 
     # ---- 3. kernels against their plain twins on the path's inputs
     kernels, failures = [], []
+    check(len(mma) == 3 and all(mma.values()), "the render body's forms "
+          "have no tensor-core instructions", failures)
     with torch.no_grad():
         volume, imgs01, nf, pose_t = ev.build_volume(imgs_norm, projs,
                                                      NEAR_FAR, pose_src)
@@ -2245,6 +2335,7 @@ def main():
         k6 = (ndc.contiguous(), z_vals.contiguous(), colors,
               gen_dir_feature(w2cs[0], unit).contiguous(), volume, mlp)
         r_k, r_p = render_v0(*k6), render_v0_plain(*k6)
+        mlp64 = copy.deepcopy(mlp).double()
         kernels.append(dict(
             name="K6 render_v0", route="cuda",
             source="mvsnerf_tpu_torch/csrc/render_v0.cu",
@@ -2255,11 +2346,13 @@ def main():
             library_ms=None,
             **bound(nbytes(*k6[:4], *r_k.values()) +
                     touched_volume_bytes(volume, k6[0]),
-                    mlp_flops(k6[0][..., 0].numel()))))
+                    mlp_flops(k6[0][..., 0].numel()), RENDER_TC_PASSES),
+            **f64_anchor(r_k, r_p, lambda: render_v0_plain(
+                *(a.double() for a in k6[:5]), mlp64))))
         print(f"   K6 inputs: acc mean {float(r_p['acc'].mean()):.4f}, "
               f"rgb std {float(r_p['rgb'].std()):.4f}")
         del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p, inp4, \
-            grid4
+            grid4, mlp64
     report(3, kernels, failures)
     torch.cuda.empty_cache()
     # K4 backward launches by phase, from here on (phase 10 reads them)
@@ -2387,6 +2480,17 @@ def main():
           f"phase 10): kernel {k4_entry['device_ms']:.4f} ms, library "
           f"{k4_entry['device_library_ms']:.4f} ms; events - device "
           f"{k4_entry['ms'] - k4_entry['device_ms']:.4f} ms")
+    # ---- K6's device time on phase 3's inputs, taken last for the same
+    # reason
+    k6_entry = next(k for k in kernels if k["name"] == "K6 render_v0")
+    with torch.no_grad():
+        k6 = k6_inputs(ev, mlp, (imgs_norm, projs, pose_src), requests)
+        k6_entry["device_ms"] = device_total(lambda: render_v0(*k6))
+        del k6
+    print(f"[3 kernel] K6 render_v0 on the device (torch.profiler, after "
+          f"phase 10): {k6_entry['device_ms']:.4f} ms (its weight packing "
+          f"included); events - device "
+          f"{k6_entry['ms'] - k6_entry['device_ms']:.4f} ms")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

@@ -1,13 +1,15 @@
 """Build and bind the hand-written CUDA kernels under csrc/.
 
-At first use, each csrc/*.cu is compiled by its own nvcc, all at once,
+At first use, each csrc/*.cu is compiled by its own nvcc, all at once
+(the headers csrc/*.cuh are included by them),
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
          -fPIC -Xptxas -v -c -o <obj> csrc/<name>.cu
 
 and the objects are linked into one shared library with a plain C
 interface (`nvcc -shared -o _build/libmvsnerf_kernels_<hash>.so`), loaded
-with ctypes. The file name carries a hash of the sources and flags, so an
+with ctypes. The file name carries a hash of the sources, headers and
+flags, so an
 edited kernel is rebuilt and a built one is reused. Every C entry point
 takes its pointers and the CUDA stream as `void*` and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
@@ -44,12 +46,15 @@ SIGNATURES = {
     "color_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, pts, w2cs, intrinsics, gimgs, M, V, H, W, stream
     "color_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ndc, z, colors (or null), dirs, vol, weights, out, N, S, D, HP, WP, C,
-    # n_weights, stream
-    "render_v0": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _P],
-    # ndc, z, feats, dirs, weights, out, wout, N, S, n_weights, stream
-    "render_v0_feats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ndc, z, colors (or null), dirs, vol, weights, tc, out, N, S, D, HP,
+    # WP, C, n_weights, n_tc, stream
+    "render_v0": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _P],
+    # ndc, z, feats, dirs, weights, tc, out, wout, N, S, n_weights, n_tc,
+    # stream
+    "render_v0_feats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # -> bytes of dynamic shared memory the render body takes a block
+    "render_v0_smem_bytes": [],
     # vol, ndc, out, n_samples, D, HP, WP, C, stream
     "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, ndc, gvol, n_samples, D, HP, WP, C, stream
@@ -129,7 +134,7 @@ def library() -> ctypes.CDLL:
         return _lib
     srcs = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(SRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libmvsnerf_kernels_{digest.hexdigest()[:16]}.so"

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernels of mvsnerf_tpu/ops/pallas_costreg.py:
 //   conv3d_s1_dband (:210, pallas_call :238)   -> conv3d_fwd_kernel<1>
-//   conv3d_s2_dband (:337, pallas_call :365)   -> conv3d_fwd_kernel<2>
+//   conv3d_s2_dband (:337, pallas_call :365)   -> conv3d_s2_pair_kernel
+//                                                 (conv3d_fwd_kernel<2>
+//                                                 where W % 4 != 0)
 //   conv3d_up_dband (:480, pallas_call :513)   -> conv3d_up_kernel
 //   _s1_wgrad_dband (:597, pallas_call :612)   -> conv3d_wgrad_kernel<1>
 //   _s2_wgrad_dband (:707, pallas_call :722)   -> conv3d_wgrad_kernel<2>
@@ -28,7 +30,10 @@
 // conv3d_fwd: one thread per output voxel with a tile of COT output
 // channels in registers; the block's weights for a chunk of input channels
 // sit in shared memory as [channel, tap][COT] rows, read as broadcast
-// float4s. conv3d_up: gather form, one thread per pair of W outputs (2m,
+// float4s. At stride 2 (with W % 4 == 0, as every DTU layer has) a thread
+// takes a pair of W outputs instead: one float4 and a shuffle feed both
+// (conv3d_s2_pair_kernel), and the blocks are sized to give every SM the
+// same load. conv3d_up: gather form, one thread per pair of W outputs (2m,
 // 2m+1), which share their input taps; only taps of matching parity are
 // visited, so no atomics. conv3d_wgrad: an implicit GEMM, M = A output
 // rows, N = B x 27 (channel, tap) columns, K = the gradient's voxels in
@@ -55,6 +60,7 @@ constexpr int THREADS = 256;
 constexpr int WCHUNK = 256;  // COT x input channels per weight chunk
 constexpr int KC = 32;       // voxels (along W) per wgrad stage
 constexpr int SMS_FALLBACK = 132;
+constexpr int PAIR_MAX_THREADS = 640;  // the paired s2 kernel's largest block
 
 int sm_count() {
   static int sms = 0;
@@ -77,9 +83,10 @@ template <int COT>
 __device__ __forceinline__ void stage_weights(float* sw,
                                               const float* __restrict__ w,
                                               int Cin, int Cout, int c0,
-                                              int co0, bool io_major) {
+                                              int co0, bool io_major,
+                                              int nt = THREADS) {
   constexpr int CIC = WCHUNK / COT;
-  for (int i = threadIdx.x; i < CIC * 27 * COT; i += THREADS) {
+  for (int i = threadIdx.x; i < CIC * 27 * COT; i += nt) {
     const int co = i % COT, r = i / COT, cl = r / 27, tap = r % 27;
     const int ci = c0 + cl, o = co0 + co;
     float v = 0.f;
@@ -161,6 +168,106 @@ conv3d_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < COT; ++j)
     if (co0 + j < Cout) y[(long long)(co0 + j) * n_out + v] = acc[j];
+}
+
+// a0 += w * x0, a1 += w * x1 over one tap's COT output channels
+template <int COT>
+__device__ __forceinline__ void fma_pair(float (&a0)[COT], float (&a1)[COT],
+                                         const float* sw, float x0,
+                                         float x1) {
+  const float4* w4 = reinterpret_cast<const float4*>(sw);
+#pragma unroll
+  for (int j = 0; j < COT / 4; ++j) {
+    const float4 q = w4[j];
+    a0[4 * j] = fmaf(q.x, x0, a0[4 * j]);
+    a0[4 * j + 1] = fmaf(q.y, x0, a0[4 * j + 1]);
+    a0[4 * j + 2] = fmaf(q.z, x0, a0[4 * j + 2]);
+    a0[4 * j + 3] = fmaf(q.w, x0, a0[4 * j + 3]);
+    a1[4 * j] = fmaf(q.x, x1, a1[4 * j]);
+    a1[4 * j + 1] = fmaf(q.y, x1, a1[4 * j + 1]);
+    a1[4 * j + 2] = fmaf(q.z, x1, a1[4 * j + 2]);
+    a1[4 * j + 3] = fmaf(q.w, x1, a1[4 * j + 3]);
+  }
+}
+
+// Stride 2 with each thread on the pair of W outputs (2p, 2p + 1) of one
+// (od, oh) row, COT channels each: their 6 taps of an input row are the 5
+// columns 4p - 1 .. 4p + 3, read as one float4 (4p .. 4p + 3) and the left
+// neighbour lane's last column by a shuffle (the row's first pair has
+// none: the zero padding), so a warp's row read is 512 contiguous bytes
+// instead of three half-used stride-2 sweeps, and each staged weight
+// float4 feeds 8 multiply-adds. Needs Wi % 4 == 0 (16-byte rows; Wo = Wi /
+// 2 even, every float4 in range). Rows outside the input read zeros rather
+// than branching, so every lane reaches the shuffle; the sums are the
+// per-output kernel's, in the same tap order. Any block size up to
+// PAIR_MAX_THREADS (a multiple of 32): s2_pair_plan sizes the blocks so
+// that every SM gets the same number of pairs.
+template <int COT>
+__global__ void __launch_bounds__(PAIR_MAX_THREADS)
+conv3d_s2_pair_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w, float* __restrict__ y,
+                      int Cin, int Cout, int Di, int Hi, int Wi, int Do,
+                      int Ho, int Wo) {
+  constexpr int CIC = WCHUNK / COT;
+  __shared__ __align__(16) float sw[CIC * 27 * COT];
+  const int Wp = Wo / 2;
+  const int n_pairs = Do * Ho * Wp;
+  const int nt = blockDim.x;
+  const int v = blockIdx.x * nt + threadIdx.x;
+  const int co0 = blockIdx.y * COT;
+  const int lane = threadIdx.x & 31;
+  const bool live = v < n_pairs;
+  int od = 0, oh = 0, p = 0;
+  if (live) {
+    p = v % Wp;
+    const int t = v / Wp;
+    oh = t % Ho;
+    od = t / Ho;
+  }
+  const long long plane = (long long)Di * Hi * Wi;
+  float a0[COT], a1[COT];
+#pragma unroll
+  for (int j = 0; j < COT; ++j) a0[j] = a1[j] = 0.f;
+  for (int c0 = 0; c0 < Cin; c0 += CIC) {
+    __syncthreads();
+    stage_weights<COT>(sw, w, Cin, Cout, c0, co0, false, nt);
+    __syncthreads();
+    const int nc = min(CIC, Cin - c0);
+    for (int cl = 0; cl < nc; ++cl) {
+      const float* xc = x + (c0 + cl) * plane;
+      const float* swc = sw + cl * 27 * COT;
+#pragma unroll
+      for (int kd = 0; kd < 3; ++kd) {
+        const int id = 2 * od - 1 + kd;
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          const int ih = 2 * oh - 1 + kh;
+          const bool ok = live && id >= 0 && id < Di && ih >= 0 && ih < Hi;
+          const float* row = xc + ((long long)id * Hi + ih) * Wi;
+          float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ok) q = __ldg(reinterpret_cast<const float4*>(row) + p);
+          float left = __shfl_up_sync(0xffffffffu, q.w, 1);
+          if (p == 0)
+            left = 0.f;
+          else if (lane == 0)
+            left = ok ? __ldg(row + 4 * p - 1) : 0.f;
+          const float* wr = swc + (kd * 3 + kh) * 3 * COT;
+          fma_pair<COT>(a0, a1, wr, left, q.y);           // kw = 0
+          fma_pair<COT>(a0, a1, wr + COT, q.x, q.z);      // kw = 1
+          fma_pair<COT>(a0, a1, wr + 2 * COT, q.y, q.w);  // kw = 2
+        }
+      }
+    }
+  }
+  if (!live) return;
+  const long long n_out = (long long)Do * Ho * Wo;
+  const long long o = ((long long)od * Ho + oh) * Wo + 2 * p;
+#pragma unroll
+  for (int j = 0; j < COT; ++j) {
+    if (co0 + j >= Cout) break;
+    y[(co0 + j) * n_out + o] = a0[j];
+    y[(co0 + j) * n_out + o + 1] = a1[j];
+  }
 }
 
 // Transposed stride-2 convolution, pad 1 (torch ConvTranspose3d with
@@ -346,6 +453,17 @@ int pick_cot(int cout, long long n_blocks) {
   return cot;
 }
 
+// The paired stride-2 kernel's tile (COT channels, nt threads a block):
+// COT 16 where Cout allows; where the (pair, channel tile) units fit in
+// one block a SM, blocks of that many threads (rounded up to a warp), so
+// that every SM carries the same load; else 256.
+void s2_pair_plan(int cout, long long n_pairs, int* cot, int* nt) {
+  *cot = cout % 16 == 0 ? 16 : 8;
+  const long long units = n_pairs * ((cout + *cot - 1) / *cot);
+  const long long per_sm = (units + sm_count() - 1) / sm_count();
+  *nt = per_sm <= PAIR_MAX_THREADS ? (int)((per_sm + 31) / 32 * 32) : 256;
+}
+
 template <int S>
 int launch_fwd(int cot, dim3 grid, cudaStream_t st, const float* x,
                const float* w, float* y, int Cin, int Cout, int Di, int Hi,
@@ -363,6 +481,16 @@ int launch_fwd(int cot, dim3 grid, cudaStream_t st, const float* x,
       conv3d_fwd_kernel<S, 32><<<grid, THREADS, 0, st>>>(
           x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo);
   }
+  return (int)cudaGetLastError();
+}
+
+template <int COT>
+int launch_s2_pair(int nt, long long n_pairs, cudaStream_t st,
+                   const float* x, const float* w, float* y, int Cin,
+                   int Cout, int Di, int Hi, int Wi, int Do, int Ho, int Wo) {
+  const dim3 grid((unsigned)((n_pairs + nt - 1) / nt), (Cout + COT - 1) / COT);
+  conv3d_s2_pair_kernel<COT><<<grid, nt, 0, st>>>(x, w, y, Cin, Cout, Di, Hi,
+                                                  Wi, Do, Ho, Wo);
   return (int)cudaGetLastError();
 }
 
@@ -399,13 +527,22 @@ extern "C" int conv3d_fwd(const void* x, const void* w, void* y, int Cin,
   if ((stride != 1 && stride != 2) || !sizes_ok(Cin, (long long)Di * Hi * Wi) ||
       !sizes_ok(Cout, n_out))
     return (int)cudaErrorInvalidValue;
-  const long long n_blocks = (n_out + THREADS - 1) / THREADS;
-  const int cot = pick_cot(Cout, n_blocks);
-  const dim3 grid((unsigned)n_blocks, (Cout + cot - 1) / cot);
   cudaStream_t st = (cudaStream_t)stream;
   auto xp = (const float*)x;
   auto wp = (const float*)w;
   auto yp = (float*)y;
+  if (stride == 2 && Wi % 4 == 0 && 2 * Wo == Wi) {
+    const long long n_pairs = n_out / 2;
+    int cot, nt;
+    s2_pair_plan(Cout, n_pairs, &cot, &nt);
+    return cot == 8 ? launch_s2_pair<8>(nt, n_pairs, st, xp, wp, yp, Cin,
+                                        Cout, Di, Hi, Wi, Do, Ho, Wo)
+                    : launch_s2_pair<16>(nt, n_pairs, st, xp, wp, yp, Cin,
+                                         Cout, Di, Hi, Wi, Do, Ho, Wo);
+  }
+  const long long n_blocks = (n_out + THREADS - 1) / THREADS;
+  const int cot = pick_cot(Cout, n_blocks);
+  const dim3 grid((unsigned)n_blocks, (Cout + cot - 1) / cot);
   return stride == 1
              ? launch_fwd<1>(cot, grid, st, xp, wp, yp, Cin, Cout, Di, Hi, Wi,
                              Do, Ho, Wo)

@@ -23,39 +23,60 @@
 //     (pallas_kernels.py:170-188's clamp), accumulating rgb, depth, acc.
 // White background is applied by the caller. There is NO early stop (the
 // TPU kernel skips blocks below 1e-4 transmittance), so the result equals
-// the unfused chunked render up to f32 summation order. Not carried over:
-// the TPU kernels' bf16 interpolation, 3-pass split dots, CP=32 lane
-// packing, tile windows (plan_tiles / pick_tile), and K8's rays_per_tile
-// padding and triangular-matmul prefix sum (a running product here).
+// the unfused chunked render up to f32 rounding. Not carried over: the TPU
+// kernels' bf16 interpolation, CP=32 lane packing, tile windows
+// (plan_tiles / pick_tile), and K8's rays_per_tile padding and
+// triangular-matmul prefix sum (a warp's product scan here).
 //
-// Layout: one block of 128 threads per ray; thread j owns hidden unit j.
-// Samples go through the MLP in groups of G = 8, so every weight read from
-// global memory (126,788 floats in all, L1/L2-resident) feeds 8 FMAs.
-// Activations live in shared memory as [unit][sample] rows read as
-// broadcast float4s. The group's 20 x 8 (channel, sample) feature slots
-// are staged by threads 32..127, two rounds of 96. After each group,
-// thread 0 composites the group's samples in order.
+// Layout: a block of 256 threads (8 warps) takes a tile of 128 rows, the
+// samples of 128 / S whole rays (S <= 128) or 128 samples of one ray (S >
+// 128: the block walks the ray's tiles in order, carrying the compositing
+// state). Per tile:
+//   1. stage: threads 0-127 fetch one row's features each (the sample's
+//      trilinear corners and weights once, each corner's NV channels as
+//      float4s; the unnormalisation bit for bit the twin's), threads
+//      128-255 its PE; the per-ray start of the views layer (bias +
+//      direction term) in f32;
+//   2. the MLP's products on tensor cores (csrc/mlp_tc.cuh: 3xTF32
+//      `mma.sync`, f32 accumulation; every weight streamed through a
+//      shared-memory ring by bulk copies, once per tile, the next tile's
+//      first chunks prefetched where a ray spans tiles): warp w owns rows
+//      64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31 (16 for the
+//      64-wide views layer). pts_bias's output stays in registers as the
+//      multiplier of layers 0-5; each layer's epilogue (x bias, ReLU) goes
+//      to a shared [row][unit] buffer that the next layer reads as A. The
+//      activations never touch device memory;
+//   3. the heads in f32: sigma (128 -> 1) from h5, rgb (64 -> 3, sigmoid);
+//   4. compositing: a warp a ray, each lane a run of consecutive samples,
+//      the transmittance by a product scan across lanes.
 //
-// What bounds it on the H100: f32 FMA issue and L1 weight traffic, ~125k
-// FMA per sample; the per-sample inputs (at most 80 B features or 8 x 80 B
-// volume corners, 12 B NDC, 4 B z) are small beside that. The weight loads
-// are latency-bound, so residency matters: uncapped, ptxas gives the body
-// 54 registers (9 blocks a SM) and each form takes ~30 ms per 16384 x 128
-// chunk; `__launch_bounds__(W, MIN_BLOCKS)` caps it at 48 (10 blocks a SM,
-// a few bytes of spills) and brings each form to ~25 ms (PERF.md).
+// What bounds it on the H100: the MLP's 1.26e5 multiply-adds a sample, run
+// three times on the tensor cores (3xTF32: 3.19 ms a 16384 x 128 chunk at
+// the 495 TFLOP/s TF32 peak, against 7.87 ms at the f32 FMA peak); then
+// the A fragments' shared-memory reads and splits, the weight stream (1 MB
+// of L2 reads a tile, 16 GB a chunk), and the tile's staging, epilogues
+// and heads, during which the tensor cores idle (one block a SM: 207 KB of
+// shared memory).
 
 #include <cuda_runtime.h>
 
+#include "mlp_tc.cuh"
+
 namespace {
 
+using namespace mlp_tc;
+
 constexpr int W = 128;   // hidden width
-constexpr int G = 8;     // samples per MLP group
 constexpr int NFREQ = 10;
 constexpr int NPE = 3 + 2 * NFREQ * 3;  // 63
 constexpr int NF = 20;                  // MLP feature inputs (pts_bias)
 constexpr int WH = W / 2;               // views head width
-constexpr int STAGE0 = 4 * G;           // first feature-staging thread
-constexpr int MIN_BLOCKS = 10;          // resident blocks a SM (48 regs)
+constexpr int ROWS = 128;               // samples a tile
+constexpr int THREADS = 256;            // 8 warps: 2 row halves x 4 columns
+constexpr int MAX_RAYS = ROWS / 8;      // rays a tile holds (S % 8 == 0)
+constexpr int LDA = W + 4;              // shared row strides (floats): the
+constexpr int LDP = 64 + 4;             // A fragments' reads are free of
+constexpr int LDF = 24 + 4;             // bank conflicts when stride % 32 = 4
 
 // packed weights: each layer's (in, out) matrix row-major, then its bias
 constexpr int OFF_W0 = 0;                         // pts_linears.0 (63, 128)
@@ -76,32 +97,14 @@ constexpr int OFF_WR = OFF_BV + WH;               // rgb_linear (64, 3)
 constexpr int OFF_BR = OFF_WR + WH * 3;
 constexpr int N_WEIGHTS = OFF_BR + 3;
 
-// a[g] += w * row[g] for the G samples of one input unit
-__device__ __forceinline__ void fma_row(float (&a)[G], float w,
-                                        const float* row) {
-  const float4 u = reinterpret_cast<const float4*>(row)[0];
-  const float4 v = reinterpret_cast<const float4*>(row)[1];
-  a[0] = fmaf(w, u.x, a[0]);
-  a[1] = fmaf(w, u.y, a[1]);
-  a[2] = fmaf(w, u.z, a[2]);
-  a[3] = fmaf(w, u.w, a[3]);
-  a[4] = fmaf(w, v.x, a[4]);
-  a[5] = fmaf(w, v.y, a[5]);
-  a[6] = fmaf(w, v.z, a[6]);
-  a[7] = fmaf(w, v.w, a[7]);
-}
-
-// a = bias[j] + sum_k Wt[k, j] * x[k]  over n_in input units
-__device__ __forceinline__ void dense(float (&a)[G],
-                                      const float* __restrict__ Wt,
-                                      const float* __restrict__ b, int n_in,
-                                      int n_out, int j, float (*x)[G]) {
-  const float b0 = __ldg(b + j);
-#pragma unroll
-  for (int g = 0; g < G; ++g) a[g] = b0;
-#pragma unroll 4
-  for (int k = 0; k < n_in; ++k) fma_row(a, __ldg(Wt + k * n_out + j), x[k]);
-}
+struct Smem {
+  float ring[NSTAGE * CHUNK];  // the weight stream (16-byte aligned)
+  float act[ROWS * LDA];       // activations; the features (LDF) first
+  float pe[ROWS * LDP];        // PE, 63 + a zero column
+  float vinit[MAX_RAYS][WH];   // views layer: bias + direction term a ray
+  float sig[ROWS], z[ROWS], rgb[ROWS][3];
+  alignas(8) uint64_t bars[NSTAGE];  // the stream's barriers
+};
 
 // grid_sample(align_corners=True) unnormalisation of an NDC coordinate
 __device__ __forceinline__ float unnorm(float ndc, int size) {
@@ -109,205 +112,379 @@ __device__ __forceinline__ float unnorm(float ndc, int size) {
   return __fmul_rn(__fdiv_rn(__fadd_rn(g, 1.f), 2.f), (float)(size - 1));
 }
 
-// trilinear zeros-padded fetch of channel c of the (D, HP, WP, NV) volume
+// val[0, NV) = the trilinear zeros-padded fetch of the (D, HP, WP, NV)
+// volume at NDC p: each channel sums its 8 corners in the same order and
+// with the same arithmetic as the twin's coordinates give
 template <int NV>
-__device__ __forceinline__ float fetch(const float* __restrict__ vol,
-                                       const float* p, int c, int D, int HP,
-                                       int WP) {
+__device__ __forceinline__ void fetch(const float* __restrict__ vol,
+                                      const float* p, int D, int HP, int WP,
+                                      float (&val)[NF]) {
+#pragma unroll
+  for (int c = 0; c < NV; ++c) val[c] = 0.f;
   const float ix = unnorm(p[0], WP), iy = unnorm(p[1], HP),
               iz = unnorm(p[2], D);
-  float val = 0.f;
-  if (ix > -1.f && ix < (float)WP && iy > -1.f && iy < (float)HP &&
-      iz > -1.f && iz < (float)D) {
-    const float fx = floorf(ix), fy = floorf(iy), fz = floorf(iz);
-    const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-    const float wx[2] = {(fx + 1.f) - ix, ix - fx};
-    const float wy[2] = {(fy + 1.f) - iy, iy - fy};
-    const float wz[2] = {(fz + 1.f) - iz, iz - fz};
+  if (!(ix > -1.f && ix < (float)WP && iy > -1.f && iy < (float)HP &&
+        iz > -1.f && iz < (float)D))
+    return;
+  const float fx = floorf(ix), fy = floorf(iy), fz = floorf(iz);
+  const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
+  const float wx[2] = {(fx + 1.f) - ix, ix - fx};
+  const float wy[2] = {(fy + 1.f) - iy, iy - fy};
+  const float wz[2] = {(fz + 1.f) - iz, iz - fz};
 #pragma unroll
-    for (int t8 = 0; t8 < 8; ++t8) {
-      const int dx = t8 & 1, dy = (t8 >> 1) & 1, dz = t8 >> 2;
-      const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
-      if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
-        continue;
-      const float wgt = wx[dx] * wy[dy] * wz[dz];
-      val = fmaf(__ldg(vol + (((long long)zi * HP + yi) * WP + xi) * NV + c),
-                 wgt, val);
+  for (int t8 = 0; t8 < 8; ++t8) {
+    const int dx = t8 & 1, dy = (t8 >> 1) & 1, dz = t8 >> 2;
+    const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
+    if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
+      continue;
+    const float wgt = wx[dx] * wy[dy] * wz[dz];
+    const float4* src = reinterpret_cast<const float4*>(
+        vol + (((long long)zi * HP + yi) * WP + xi) * NV);
+#pragma unroll
+    for (int q = 0; q < NV / 4; ++q) {
+      const float4 v = __ldg(src + q);
+      val[4 * q] = fmaf(v.x, wgt, val[4 * q]);
+      val[4 * q + 1] = fmaf(v.y, wgt, val[4 * q + 1]);
+      val[4 * q + 2] = fmaf(v.z, wgt, val[4 * q + 2]);
+      val[4 * q + 3] = fmaf(v.w, wgt, val[4 * q + 3]);
     }
   }
-  return val;
+}
+
+// epilogue of layers 0-5: act = relu(acc * bias), fragment by fragment
+__device__ __forceinline__ void store_hidden(const float (&acc)[4][4][4],
+                                             const float (&pb)[4][4][4],
+                                             float* act, int row0, int nb0) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(frag_at(act, LDA, row0, nb0, mi, ni,
+                                           2 * h)) =
+            make_float2(fmaxf(acc[mi][ni][2 * h] * pb[mi][ni][2 * h], 0.f),
+                        fmaxf(acc[mi][ni][2 * h + 1] * pb[mi][ni][2 * h + 1],
+                              0.f));
+}
+
+// Composite rows [first, first + len) of the tile front to back, one warp:
+// lane l takes a run of consecutive samples; T_in and the sums carry in
+// (S > 128) and out. K8 writes each sample's weight to wout[gbase + row].
+template <bool WEIGHTS>
+__device__ __forceinline__ void composite(const Smem& sm, int first, int len,
+                                          float* __restrict__ wout,
+                                          long long gbase, float& T,
+                                          float (&sum)[5]) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int per = (len + 31) / 32;
+  const int s0 = min(lane * per, len), s1 = min(s0 + per, len);
+  float prod = 1.f;
+  for (int s = s0; s < s1; ++s) {
+    const float alpha = 1.f - expf(-sm.sig[first + s]);
+    prod *= fmaxf(1.f - alpha, 0.f) + 1e-10f;
+  }
+  float inc = prod;  // inclusive product scan over the lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc *= v;
+  }
+  float tr = __shfl_up_sync(FULL, inc, 1);
+  tr = T * (lane == 0 ? 1.f : tr);
+  float part[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s = s0; s < s1; ++s) {
+    const int row = first + s;
+    const float alpha = 1.f - expf(-sm.sig[row]);
+    const float wgt = alpha * tr;
+    if (WEIGHTS) wout[gbase + row] = wgt;
+    tr *= fmaxf(1.f - alpha, 0.f) + 1e-10f;
+    part[0] += wgt * sm.rgb[row][0];
+    part[1] += wgt * sm.rgb[row][1];
+    part[2] += wgt * sm.rgb[row][2];
+    part[3] += wgt * sm.z[row];
+    part[4] += wgt;
+  }
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+      part[i] += __shfl_xor_sync(FULL, part[i], o);
+    sum[i] += part[i];
+  }
+  T = __shfl_sync(FULL, tr, 31);
 }
 
 template <int NV, int NC, bool WEIGHTS>
-__global__ void __launch_bounds__(W, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 1)
     render_v0_kernel(const float* __restrict__ ndc,
                      const float* __restrict__ zv,
                      const float* __restrict__ feats,
                      const float* __restrict__ dirs,
                      const float* __restrict__ vol,
-                     const float* __restrict__ wts, float* __restrict__ out,
-                     float* __restrict__ wout, int S, int D, int HP,
+                     const float* __restrict__ wts,
+                     const float* __restrict__ tc, float* __restrict__ out,
+                     float* __restrict__ wout, int N, int S, int D, int HP,
                      int WP) {
-  static_assert(NV + NC == NF, "the v0 MLP takes 20 feature channels");
-  __shared__ __align__(16) float s_pe[NPE][G];
-  __shared__ __align__(16) float s_ft[NF][G];
-  __shared__ __align__(16) float s_ha[W][G];
-  __shared__ __align__(16) float s_hb[W][G];
-  __shared__ __align__(16) float s_hv[WH][G];
-  __shared__ float s_sig[G], s_rgb[3][G], s_z[G], s_dir[3];
+  static_assert(NV + NC == NF && NV % 4 == 0 && NC % 4 == 0,
+                "the v0 MLP takes 20 feature channels, in float4s");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int row0 = 64 * (warp >> 2), wn = warp & 3;
+  const bool whole = S <= ROWS;  // whole rays in a tile
+  const int rpc = whole ? ROWS / S : 1;
+  const int n_tiles = whole ? 1 : (S + ROWS - 1) / ROWS;
+  const long long ray0 = (long long)blockIdx.x * rpc;
+  const int n_rays = (int)min((long long)rpc, N - ray0);  // 1 if S > 128
+  float carry_T = 1.f, carry[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // S > 128
+  WeightStream ws;
+  ws.init(tc, TC_TOTAL, n_tiles, sm.ring, sm.bars);
 
-  const int j = threadIdx.x;
-  const long long ray = blockIdx.x;
-  if (j < 3) s_dir[j] = dirs[ray * 3 + j];
-  float trans = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f,
-        acc_a = 0.f;  // thread 0's compositing state
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int len = whole ? S : min(ROWS, S - tile * ROWS);
+    const int n_rows = whole ? n_rays * S : len;
+    const long long gbase = ray0 * S + (long long)tile * ROWS;
+    if (tile > 0) __syncthreads();  // the last tile's readers are done
+    ws.next_pass();
 
-  for (int s0 = 0; s0 < S; s0 += G) {
-    const long long base = ray * S + s0;
-    // ---- stage the group's inputs in shared memory
-    if (j < 3 * G) {  // positional encoding, one (sample, axis) each
-      const int g = j / 3, i = j % 3;
-      const float x = ndc[(base + g) * 3 + i];
-      s_pe[i][g] = x;
-      float f = 1.f;
-      for (int k = 0; k < NFREQ; ++k, f *= 2.f) {
-        s_pe[3 + 3 * k + i][g] = sinf(x * f);
-        s_pe[3 + 3 * NFREQ + 3 * k + i][g] = cosf(x * f);
+    // ---- 1. stage the tile's inputs
+    if (tid < ROWS) {  // features, one row a thread
+      const int r = tid;
+      float val[NF];
+#pragma unroll
+      for (int c = 0; c < NF; ++c) val[c] = 0.f;
+      float z = 0.f;
+      if (r < n_rows) {
+        const long long gi = gbase + r;
+        if (NV > 0) fetch<NV>(vol, ndc + gi * 3, D, HP, WP, val);
+        if (NC > 0) {
+          const float4* src = reinterpret_cast<const float4*>(feats + gi * NC);
+#pragma unroll
+          for (int q = 0; q < NC / 4; ++q) {
+            const float4 v = __ldg(src + q);
+            val[NV + 4 * q] = v.x;
+            val[NV + 4 * q + 1] = v.y;
+            val[NV + 4 * q + 2] = v.z;
+            val[NV + 4 * q + 3] = v.w;
+          }
+        }
+        z = zv[gi];
       }
-    } else if (j < STAGE0) {
-      s_z[j - 3 * G] = zv[base + j - 3 * G];
-    } else {  // the 20 features, one (sample, channel) slot per round
-      for (int t = j - STAGE0; t < NF * G; t += W - STAGE0) {
-        const int g = t / NF, c = t % NF;
-        s_ft[c][g] = c < NV ? fetch<NV>(vol, ndc + (base + g) * 3, c, D, HP,
-                                        WP)
-                            : feats[(base + g) * NC + (c - NV)];
+      float4* f = reinterpret_cast<float4*>(sm.act + r * LDF);
+#pragma unroll
+      for (int q = 0; q < NF / 4; ++q)
+        f[q] = make_float4(val[4 * q], val[4 * q + 1], val[4 * q + 2],
+                           val[4 * q + 3]);
+      f[NF / 4] = make_float4(0.f, 0.f, 0.f, 0.f);  // K padding 20 -> 24
+      sm.z[r] = z;
+    } else {  // PE, one row a thread
+      const int r = tid - ROWS;
+      float* p = sm.pe + r * LDP;
+      if (r < n_rows) {
+        const float* pn = ndc + (gbase + r) * 3;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float x = pn[i];
+          p[i] = x;
+          float f = 1.f;
+#pragma unroll
+          for (int k = 0; k < NFREQ; ++k, f *= 2.f) {
+            float s, c;
+            sincosf(x * f, &s, &c);
+            p[3 + 3 * k + i] = s;
+            p[3 + 3 * NFREQ + 3 * k + i] = c;
+          }
+        }
+      } else {
+        for (int k = 0; k < NPE; ++k) p[k] = 0.f;
       }
+      p[NPE] = 0.f;  // K padding 63 -> 64
+    }
+    // the views layer's start a ray: bias + direction term, f32
+    for (int i = tid; i < n_rays * WH; i += THREADS) {
+      const int rr = i / WH, j = i % WH;
+      const float* d = dirs + (ray0 + rr) * 3;
+      float a = __ldg(wts + OFF_BV + j);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        a = fmaf(__ldg(wts + OFF_WV + (W + k) * WH + j), d[k], a);
+      sm.vinit[rr][j] = a;
     }
     __syncthreads();
 
-    // ---- v0 MLP, thread j = hidden unit j
-    float bias[G], a[G];
-    dense(bias, wts + OFF_WB, wts + OFF_BB, NF, W, j, s_ft);
-    dense(a, wts + OFF_W0, wts + OFF_B0, NPE, W, j, s_pe);
-#pragma unroll
-    for (int g = 0; g < G; ++g) s_ha[j][g] = fmaxf(a[g] * bias[g], 0.f);
+    // ---- 2. the MLP on tensor cores
+    float pb[4][4][4], acc[4][4][4];
+    init_cols(pb, wts + OFF_BB, 4 * wn);  // pts_bias: the multiplier
+    mma_ksteps(pb, sm.act, LDF, row0, 3, ws, W, 4 * wn);
+    init_cols(acc, wts + OFF_B0, 4 * wn);  // layer 0 over PE
+    mma_ksteps(acc, sm.pe, LDP, row0, 8, ws, W, 4 * wn);
+    __syncthreads();  // the features are read
+    store_hidden(acc, pb, sm.act, row0, 4 * wn);
     __syncthreads();
-    float(*hin)[G] = s_ha;
-    float(*hout)[G] = s_hb;
-    for (int l = 0; l < 4; ++l) {
-      const float* Wl = wts + OFF_W1 + l * LAYER;
-      dense(a, Wl, Wl + W * W, W, W, j, hin);
-#pragma unroll
-      for (int g = 0; g < G; ++g) hout[j][g] = fmaxf(a[g] * bias[g], 0.f);
+    for (int l = 0; l < 4; ++l) {  // layers 1-4
+      init_cols(acc, wts + OFF_W1 + l * LAYER + W * W, 4 * wn);
+      mma_ksteps(acc, sm.act, LDA, row0, W / 8, ws, W, 4 * wn);
       __syncthreads();
-      float(*tmp)[G] = hin;
-      hin = hout;
-      hout = tmp;
+      store_hidden(acc, pb, sm.act, row0, 4 * wn);
+      __syncthreads();
     }
-    // skip connection: layer 5 reads [pe | h]
-    dense(a, wts + OFF_W5, wts + OFF_B5, NPE, W, j, s_pe);
-#pragma unroll 4
-    for (int k = 0; k < W; ++k)
-      fma_row(a, __ldg(wts + OFF_W5 + (NPE + k) * W + j), hin[k]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) hout[j][g] = fmaxf(a[g] * bias[g], 0.f);
+    init_cols(acc, wts + OFF_B5, 4 * wn);  // layer 5 over [PE | h]
+    mma_ksteps(acc, sm.pe, LDP, row0, 8, ws, W, 4 * wn);
+    mma_ksteps(acc, sm.act, LDA, row0, W / 8, ws, W, 4 * wn);
     __syncthreads();
-    // heads: feature (all threads) and sigma (threads 0..G-1)
-    dense(a, wts + OFF_WF, wts + OFF_BF, W, W, j, hout);
-    if (j < G) {
-      float sig = __ldg(wts + OFF_BA);
-      for (int k = 0; k < W; ++k)
-        sig = fmaf(__ldg(wts + OFF_WA + k), hout[k][j], sig);
-      s_sig[j] = fmaxf(sig, 0.f);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) hin[j][g] = a[g];  // hin is free here
+    store_hidden(acc, pb, sm.act, row0, 4 * wn);
     __syncthreads();
-    if (j < WH) {
-      dense(a, wts + OFF_WV, wts + OFF_BV, W, WH, j, hin);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float w = __ldg(wts + OFF_WV + (W + k) * WH + j);
-#pragma unroll
-        for (int g = 0; g < G; ++g) a[g] = fmaf(w, s_dir[k], a[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) s_hv[j][g] = fmaxf(a[g], 0.f);
+    init_cols(acc, wts + OFF_BF, 4 * wn);  // feature_linear
+    mma_ksteps(acc, sm.act, LDA, row0, W / 8, ws, W, 4 * wn);
+    {  // sigma from h5, f32: two threads a row
+      const int r = tid >> 1, h = tid & 1;
+      const float* hr = sm.act + r * LDA + WH * h;
+      const float* wa = wts + OFF_WA + WH * h;
+      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < WH; ++k) s = fmaf(__ldg(wa + k), hr[k], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      if (h == 0) sm.sig[r] = fmaxf(s + __ldg(wts + OFF_BA), 0.f);
     }
     __syncthreads();
-    if (j < 3 * G) {
-      const int g = j / 3, c = j % 3;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              frag_at(sm.act, LDA, row0, 4 * wn, mi, ni, 2 * h)) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+    __syncthreads();
+    float av[4][2][4];  // views layer: the ray's start + feature term
+    {
+      const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + 16 * mi + g + 8 * (e >> 1);
+          const int rr = whole ? row / S : 0;
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+            av[mi][ni][e] = sm.vinit[rr][16 * wn + 8 * ni + 2 * t + (e & 1)];
+        }
+    }
+    mma_ksteps(av, sm.act, LDA, row0, W / 8, ws, WH, 2 * wn);
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              frag_at(sm.act, LDA, row0, 2 * wn, mi, ni, 2 * h)) =
+              make_float2(fmaxf(av[mi][ni][2 * h], 0.f),
+                          fmaxf(av[mi][ni][2 * h + 1], 0.f));
+    __syncthreads();
+
+    // ---- 3. rgb head, f32
+    for (int i = tid; i < ROWS * 3; i += THREADS) {
+      const int r = i / 3, c = i % 3;
+      const float* hr = sm.act + r * LDA;
       float v = __ldg(wts + OFF_BR + c);
+#pragma unroll 8
       for (int k = 0; k < WH; ++k)
-        v = fmaf(__ldg(wts + OFF_WR + k * 3 + c), s_hv[k][g], v);
-      s_rgb[c][g] = 1.f / (1.f + expf(-v));
+        v = fmaf(__ldg(wts + OFF_WR + k * 3 + c), hr[k], v);
+      sm.rgb[r][c] = 1.f / (1.f + expf(-v));
     }
     __syncthreads();
 
-    // ---- front-to-back compositing, in sample order
-    if (j == 0) {
-      for (int g = 0; g < G; ++g) {
-        const float alpha = 1.f - expf(-s_sig[g]);
-        const float wgt = alpha * trans;
-        if (WEIGHTS) wout[base + g] = wgt;
-        trans *= fmaxf(1.f - alpha, 0.f) + 1e-10f;
-        acc_r += wgt * s_rgb[0][g];
-        acc_g += wgt * s_rgb[1][g];
-        acc_b += wgt * s_rgb[2][g];
-        acc_d += wgt * s_z[g];
-        acc_a += wgt;
+    // ---- 4. front-to-back compositing, a warp a ray
+    for (int rr = warp; rr < n_rays; rr += THREADS / 32) {
+      float T = whole ? 1.f : carry_T;
+      float sum[5];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) sum[i] = whole ? 0.f : carry[i];
+      composite<WEIGHTS>(sm, whole ? rr * S : 0, len, wout, gbase, T, sum);
+      if (!whole) {
+        carry_T = T;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) carry[i] = sum[i];
+      }
+      if (tile == n_tiles - 1 && (tid & 31) == 0) {
+        float* o = out + (ray0 + rr) * 5;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) o[i] = sum[i];
       }
     }
-    __syncthreads();  // the next group restages s_z / s_rgb / s_sig
   }
-  if (j == 0) {
-    float* o = out + ray * 5;
-    o[0] = acc_r;
-    o[1] = acc_g;
-    o[2] = acc_b;
-    o[3] = acc_d;
-    o[4] = acc_a;
+}
+
+template <int NV, int NC, bool WEIGHTS>
+int launch(const float* ndc, const float* z, const float* feats,
+           const float* dirs, const float* vol, const float* wts,
+           const float* tc, float* out, float* wout, int N, int S, int D,
+           int HP, int WP, cudaStream_t st) {
+  auto kernel = render_v0_kernel<NV, NC, WEIGHTS>;
+  static bool ready = false;  // the shared-memory opt-in, once a form
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(Smem));
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
   }
+  const int rpc = S <= ROWS ? ROWS / S : 1;
+  const long long grid = ((long long)N + rpc - 1) / rpc;
+  kernel<<<(unsigned)grid, THREADS, sizeof(Smem), st>>>(
+      ndc, z, feats, dirs, vol, wts, tc, out, wout, N, S, D, HP, WP);
+  return (int)cudaGetLastError();
+}
+
+bool args_ok(int n_weights, int n_tc, int N, int S) {
+  return n_weights == N_WEIGHTS && n_tc == TC_TOTAL && S % 8 == 0 && S > 0 &&
+         N > 0;
 }
 
 }  // namespace
 
 // K6 (colors given, C = 8) or K6b (colors null, the baked C = 20 volume);
-// out (N, 5) = rgb, depth, acc
+// weights: the f32 pack (pack_v0_weights), tc: its tensor-core stream
+// (pack_v0_weights_tc); out (N, 5) = rgb, depth, acc
 extern "C" int render_v0(const void* ndc, const void* z, const void* colors,
                          const void* dirs, const void* vol,
-                         const void* weights, void* out, int N, int S, int D,
-                         int HP, int WP, int C, int n_weights, void* stream) {
-  if (n_weights != N_WEIGHTS || S % G != 0 || N < 1)
-    return (int)cudaErrorInvalidValue;
+                         const void* weights, const void* tc, void* out,
+                         int N, int S, int D, int HP, int WP, int C,
+                         int n_weights, int n_tc, void* stream) {
+  if (!args_ok(n_weights, n_tc, N, S)) return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
   if (colors != nullptr && C == 8)
-    render_v0_kernel<8, 12, false><<<N, W, 0, st>>>(
+    return launch<8, 12, false>(
         (const float*)ndc, (const float*)z, (const float*)colors,
         (const float*)dirs, (const float*)vol, (const float*)weights,
-        (float*)out, nullptr, S, D, HP, WP);
-  else if (colors == nullptr && C == NF)
-    render_v0_kernel<NF, 0, false><<<N, W, 0, st>>>(
+        (const float*)tc, (float*)out, nullptr, N, S, D, HP, WP, st);
+  if (colors == nullptr && C == NF)
+    return launch<NF, 0, false>(
         (const float*)ndc, (const float*)z, nullptr, (const float*)dirs,
-        (const float*)vol, (const float*)weights, (float*)out, nullptr, S, D,
-        HP, WP);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+        (const float*)vol, (const float*)weights, (const float*)tc,
+        (float*)out, nullptr, N, S, D, HP, WP, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K8: the 20 features of every sample gathered already; out (N, 5) = rgb,
 // depth, acc and wout (N, S) the compositing weights
 extern "C" int render_v0_feats(const void* ndc, const void* z,
                                const void* feats, const void* dirs,
-                               const void* weights, void* out, void* wout,
-                               int N, int S, int n_weights, void* stream) {
-  if (n_weights != N_WEIGHTS || S % G != 0 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  render_v0_kernel<0, NF, true><<<N, W, 0, (cudaStream_t)stream>>>(
-      (const float*)ndc, (const float*)z, (const float*)feats,
-      (const float*)dirs, nullptr, (const float*)weights, (float*)out,
-      (float*)wout, S, 0, 0, 0);
-  return (int)cudaGetLastError();
+                               const void* weights, const void* tc,
+                               void* out, void* wout, int N, int S,
+                               int n_weights, int n_tc, void* stream) {
+  if (!args_ok(n_weights, n_tc, N, S)) return (int)cudaErrorInvalidValue;
+  return launch<0, NF, true>((const float*)ndc, (const float*)z,
+                             (const float*)feats, (const float*)dirs, nullptr,
+                             (const float*)weights, (const float*)tc,
+                             (float*)out, (float*)wout, N, S, 0, 0, 0,
+                             (cudaStream_t)stream);
 }
+
+// the body's dynamic shared memory a block, bytes (one block a SM)
+extern "C" int render_v0_smem_bytes() { return (int)sizeof(Smem); }

@@ -18,11 +18,18 @@ the caller's.
 
 Replaces mvsnerf_tpu/ops/pallas_render_tiled.py:313 `tiled_render_v0`
 (hybrid and baked forms) and mvsnerf_tpu/ops/pallas_kernels.py:196
-`fused_render_v0`. What bounds them on the H100: f32 FMA issue for the
-~125k multiply-adds per sample.
+`fused_render_v0`. The kernel runs the MLP's ~1.26e5 multiply-adds a
+sample on the tensor cores in 3xTF32 (csrc/mlp_tc.cuh): each wrapper call
+packs the weights twice, as the f32 vector of `pack_v0_weights` (biases,
+heads, the direction rows) and as `pack_v0_weights_tc`, the padded
+matrices split into TF32 hi/lo pieces (`split_tf32`) in the order the
+kernel's fragments read them. Nothing is cached across calls: a trainer
+changes the MLP between them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,6 +46,93 @@ _LAYERS = ([("pts_linears.0", 63, 128), ("pts_bias", 20, 128)]
               ("rgb_linear", 64, 3)])
 N_WEIGHTS = sum(i * o + o for _, i, o in _LAYERS)
 N_FEATS = 20  # the MLP's feature inputs (pts_bias)
+
+
+def _pack_offsets():
+    """Layer name -> offset of its (in, out) matrix in `pack_v0_weights`."""
+    offsets, pos = {}, 0
+    for name, n_in, n_out in _LAYERS:
+        offsets[name] = pos
+        pos += n_in * n_out + n_out
+    return offsets
+
+
+# csrc/mlp_tc.cuh's tensor-core stream, in the kernel's order: (the
+# header's offset name, packed layer, the layer's input row at each padded
+# K row or -1 for a zero row, N). Layer 5 reads [PE (63) | h (128)], padded
+# after the PE; views_linears.0 streams its 128 feature rows (the 3
+# direction rows stay f32, once a ray).
+_PAD = -1
+TC_LAYERS = (
+    ("TC_PTS_BIAS", "pts_bias", list(range(20)) + [_PAD] * 4, 128),
+    ("TC_PTS_0", "pts_linears.0", list(range(63)) + [_PAD], 128),
+    *((f"TC_PTS_{i}", f"pts_linears.{i}", list(range(128)), 128)
+      for i in range(1, 5)),
+    ("TC_PTS_5", "pts_linears.5",
+     list(range(63)) + [_PAD] + list(range(63, 191)), 128),
+    ("TC_FEATURE", "feature_linear", list(range(128)), 128),
+    ("TC_VIEWS", "views_linears.0", list(range(128)), 64))
+
+
+def _tc_offsets():
+    """Offset name -> offset in floats of each layer's hi/lo fragments (K x
+    N x 2 floats), and the stream's length."""
+    offsets, pos = {}, 0
+    for name, _, rows, n in TC_LAYERS:
+        offsets[name] = pos
+        pos += len(rows) * n * 2
+    return offsets, pos
+
+
+TC_OFFSETS, TC_TOTAL = _tc_offsets()
+
+
+def split_tf32(x):
+    """Split float32 `x` into (hi, lo): hi is x rounded to TF32's 10
+    mantissa bits (to nearest, ties away from zero, as `cvt.rna.tf32.f32`
+    rounds), lo the remainder x - hi rounded likewise. hi + lo rebuilds x
+    within 2**-21 of |x|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def fragment_order(m):
+    """A padded (K, N) matrix as the kernel's B fragments read it: (K / 8,
+    N / 8, 32, 2), lane 4 g + t of k-step kb and n-tile nb holding
+    m[8 kb + t, 8 nb + g] and m[8 kb + t + 4, 8 nb + g]."""
+    K, N = m.shape
+    return m.reshape(K // 8, 2, 4, N // 8, 8).permute(0, 3, 4, 2, 1).reshape(
+        K // 8, N // 8, 32, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_index(device):
+    """For each (lane, b0 / b1) slot of the stream's hi half, the index of
+    its weight in `pack_v0_weights`' vector, N_WEIGHTS for a zero row: a
+    layout, the same for every MLP, so kept per device."""
+    offsets = _pack_offsets()
+    parts = []
+    for _, layer, rows, n in TC_LAYERS:
+        m = torch.full((len(rows), n), N_WEIGHTS, dtype=torch.long)
+        for k, r in enumerate(rows):
+            if r != _PAD:
+                m[k] = offsets[layer] + r * n + torch.arange(n)
+        parts.append(fragment_order(m).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+def pack_v0_weights_tc(weights):
+    """The tensor-core stream of csrc/mlp_tc.cuh from the f32 vector
+    `weights` (`pack_v0_weights`' layout): each layer of `TC_LAYERS` zero-
+    padded to K rows, in fragment order, with each lane's {b0 hi, b1 hi,
+    b0 lo, b1 lo} together; (TC_TOTAL,) float32."""
+    ext = torch.cat([weights, weights.new_zeros(1)])
+    pairs = ext[_tc_index(weights.device)].view(-1, 2)
+    hi, lo = split_tf32(pairs)
+    return torch.cat([hi, lo], 1).reshape(-1)
 
 
 def pack_v0_weights(mlp, transposed: bool = False):
@@ -99,6 +193,48 @@ def _check_tensors(name, dev, **tensors):
                              f"float32 on {dev}")
 
 
+def _packed(mlp):
+    """The f32 pack and its tensor-core stream, made anew each call."""
+    with torch.no_grad():
+        weights = pack_v0_weights(mlp)
+        return weights, pack_v0_weights_tc(weights)
+
+
+def render_v0_kernel(pts_ndc, z_vals, colors, dirs, volume, mlp):
+    """`render_v0` on the card: checks the arguments, then launches K6
+    (colours given) or K6b (colours None)."""
+    N, S = _check_rays("render", pts_ndc, z_vals, dirs)
+    if volume.dim() != 4:
+        raise ValueError(f"render kernel: volume {tuple(volume.shape)} is "
+                         f"not (D, hp, wp, C)")
+    D, hp, wp, c = volume.shape
+    dev = pts_ndc.device
+    want = 8 if colors is not None else N_FEATS
+    if c != want or (colors is not None and colors.shape != (N, S, 12)):
+        raise ValueError(
+            f"render kernel: volume {tuple(volume.shape)} with colors "
+            f"{None if colors is None else tuple(colors.shape)}; needs an "
+            f"8-channel volume with (N, S, 12) colours or a 20-channel one "
+            f"without")
+    extra = {} if colors is None else {"colors": colors}
+    _check_tensors("render", dev, pts_ndc=pts_ndc, z_vals=z_vals, dirs=dirs,
+                   volume=volume, **extra)
+    weights, tc = _packed(mlp)
+    _check_tensors("render", dev, weights=weights)
+    out = torch.empty((N, 5), device=dev)
+    rc = library().render_v0(
+        pts_ndc.data_ptr(), z_vals.data_ptr(),
+        None if colors is None else colors.data_ptr(), dirs.data_ptr(),
+        volume.data_ptr(), weights.data_ptr(), tc.data_ptr(), out.data_ptr(),
+        N, S, D, hp, wp, c, N_WEIGHTS, TC_TOTAL, stream_of(pts_ndc))
+    check(rc, "render_v0")
+    if colors is None:
+        render_v0.baked_launches += 1
+    else:
+        render_v0.launches += 1
+    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4]}
+
+
 def render_v0(pts_ndc, z_vals, colors, dirs, volume, mlp):
     """Render N rays of S samples through the v0 MLP over a volume.
 
@@ -118,37 +254,35 @@ def render_v0(pts_ndc, z_vals, colors, dirs, volume, mlp):
         return render_v0_plain(pts_ndc, z_vals, colors, dirs, volume, mlp)
     if pts_ndc.device.type != "cuda":
         raise ValueError(f"render_v0: no kernel for {pts_ndc.device}")
-    N, S = _check_rays("render", pts_ndc, z_vals, dirs)
-    D, hp, wp, c = volume.shape
-    dev = pts_ndc.device
-    want = 8 if colors is not None else N_FEATS
-    if c != want or (colors is not None and colors.shape != (N, S, 12)):
-        raise ValueError(
-            f"render kernel: volume {tuple(volume.shape)} with colors "
-            f"{None if colors is None else tuple(colors.shape)}; needs an "
-            f"8-channel volume with (N, S, 12) colours or a 20-channel one "
-            f"without")
-    with torch.no_grad():
-        weights = pack_v0_weights(mlp)
-    extra = {} if colors is None else {"colors": colors}
-    _check_tensors("render", dev, pts_ndc=pts_ndc, z_vals=z_vals, dirs=dirs,
-                   volume=volume, weights=weights, **extra)
-    out = torch.empty((N, 5), device=dev)
-    rc = library().render_v0(
-        pts_ndc.data_ptr(), z_vals.data_ptr(),
-        None if colors is None else colors.data_ptr(), dirs.data_ptr(),
-        volume.data_ptr(), weights.data_ptr(), out.data_ptr(), N, S, D, hp,
-        wp, c, N_WEIGHTS, stream_of(pts_ndc))
-    check(rc, "render_v0")
-    if colors is None:
-        render_v0.baked_launches += 1
-    else:
-        render_v0.launches += 1
-    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4]}
+    return render_v0_kernel(pts_ndc, z_vals, colors, dirs, volume, mlp)
 
 
 render_v0.launches = 0         # K6: hybrid (colours streamed in)
 render_v0.baked_launches = 0   # K6b: the colour-baked volume
+
+
+def render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp):
+    """`render_v0_feats` on the card: checks the arguments, then launches
+    K8."""
+    N, S = _check_rays("render_v0_feats", pts_ndc, z_vals, dirs)
+    if feats.shape != (N, S, N_FEATS):
+        raise ValueError(f"render_v0_feats kernel: feats "
+                         f"{tuple(feats.shape)}, want ({N}, {S}, 20)")
+    dev = pts_ndc.device
+    _check_tensors("render_v0_feats", dev, pts_ndc=pts_ndc, feats=feats,
+                   dirs=dirs, z_vals=z_vals)
+    weights, tc = _packed(mlp)
+    _check_tensors("render_v0_feats", dev, weights=weights)
+    out = torch.empty((N, 5), device=dev)
+    wout = torch.empty((N, S), device=dev)
+    rc = library().render_v0_feats(
+        pts_ndc.data_ptr(), z_vals.data_ptr(), feats.data_ptr(),
+        dirs.data_ptr(), weights.data_ptr(), tc.data_ptr(), out.data_ptr(),
+        wout.data_ptr(), N, S, N_WEIGHTS, TC_TOTAL, stream_of(pts_ndc))
+    check(rc, "render_v0_feats")
+    render_v0_feats.launches += 1
+    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4],
+            "weights": wout}
 
 
 def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp):
@@ -169,25 +303,7 @@ def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp):
         return render_v0_feats_plain(pts_ndc, feats, dirs, z_vals, mlp)
     if pts_ndc.device.type != "cuda":
         raise ValueError(f"render_v0_feats: no kernel for {pts_ndc.device}")
-    N, S = _check_rays("render_v0_feats", pts_ndc, z_vals, dirs)
-    if feats.shape != (N, S, N_FEATS):
-        raise ValueError(f"render_v0_feats kernel: feats "
-                         f"{tuple(feats.shape)}, want ({N}, {S}, 20)")
-    dev = pts_ndc.device
-    with torch.no_grad():
-        weights = pack_v0_weights(mlp)
-    _check_tensors("render_v0_feats", dev, pts_ndc=pts_ndc, feats=feats,
-                   dirs=dirs, z_vals=z_vals, weights=weights)
-    out = torch.empty((N, 5), device=dev)
-    wout = torch.empty((N, S), device=dev)
-    rc = library().render_v0_feats(
-        pts_ndc.data_ptr(), z_vals.data_ptr(), feats.data_ptr(),
-        dirs.data_ptr(), weights.data_ptr(), out.data_ptr(), wout.data_ptr(),
-        N, S, N_WEIGHTS, stream_of(pts_ndc))
-    check(rc, "render_v0_feats")
-    render_v0_feats.launches += 1
-    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4],
-            "weights": wout}
+    return render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp)
 
 
 render_v0_feats.launches = 0
