@@ -16,7 +16,8 @@ the render's gradient in its source images (K4's backward).
      mvsnerf_tpu_torch/csrc/ (nvcc, sm_90a) and prints ptxas's register,
      spill and shared-memory report, the render body's dynamic shared
      memory and the tensor-core instructions (HMMA) in its SASS
-     (cuobjdump), which must be there in all three forms;
+     (cuobjdump), which must be there in all three forms and in K7's
+     forward, delta and dW kernels;
   3. kernels: K1 (sweep), K4 (colour warp) and K6 (fused render) against
      their plain PyTorch twins on the path's own inputs, at the path's
      shapes (a 41x128x176x208 cost volume, 16384 rays x 128 samples),
@@ -44,7 +45,12 @@ the render's gradient in its source images (K4's backward).
      timed over the last 30; (c) K5 (volume gather / splat) and K7 (v0 MLP
      forward / backward) against their plain twins at the step's own
      shapes, with CUDA-event and `torch.profiler` device times of kernel
-     and library call; (d) `torch.profiler` over 3 steps: device time by
+     and library call; K7 also against a float64 run of its twin at the
+     step's N and at a ragged N, its weight streams against their Python
+     packings, dW bit-identical over two calls, its saved floats a sample,
+     its forward with and without saving them, its wrapper's host time
+     and its bound in 3xTF32 beside the f32 one; (d) `torch.profiler`
+     over 3 steps: device time by
      kernel group. No profile is taken before (b): `torch.profiler` can
      leave CUPTI attached to the process and slow every later launch on
      the host, and the step is host-bound;
@@ -321,8 +327,11 @@ def max_err(a, b):
 # device-memory bytes/s, float32 FLOP/s outside the tensor cores and dense
 # TF32 FLOP/s on them
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
-# tensor-core passes of the render body's MLP (3xTF32, csrc/mlp_tc.cuh)
+# tensor-core passes of the render body's MLP and K7's (3xTF32,
+# csrc/mlp_tc.cuh)
 RENDER_TC_PASSES = 3
+# K7's kernels that run products on the tensor cores (csrc/mlp_v0_train.cu)
+K7_TC_KERNELS = ("mlp_fwd_kernel", "mlp_delta_kernel", "mlp_dw_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -739,12 +748,118 @@ def step_ndc(system, rays, gen):
         generator=gen)[3].contiguous()
 
 
+def k7_pair(x, g, m, m64, packed):
+    """K7's forward and backward on (x, g) against the twins and a float64
+    run of the twin: (scratch, forward error and tolerance, dW and d feats
+    errors and tolerances (TOL_K7_BWD's rule), the kernel's outputs)."""
+    import torch
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    scratch = k7.mlp_v0_scratch(len(x), x.device)
+    o_k, o_p = k7.mlp_v0_fwd_kernel(x, packed, scratch), m(x)
+    dx_k, dw_k = k7.mlp_v0_bwd_kernel(g, x, packed, scratch)
+    dx_p, dw_p = k7.mlp_v0_bwd_plain(m, x, g)
+    dx_64, dw_64 = k7.mlp_v0_bwd_plain(m64, x.double(), g.double())
+    f = slice(63, 83)
+
+    def tol64(plain, ref):
+        return TOL_K7_BWD * max(max_err(plain.double(), ref),
+                                1e-6 * float(ref.abs().max()))
+
+    out = dict(
+        scratch=scratch, o_k=o_k, dx_k=dx_k, dw_k=dw_k,
+        fwd=(max_err(o_k, o_p), TOL_K7 * (1 + float(o_p.abs().max()))),
+        dw=(max_err(dw_k, dw_p), tol64(dw_p, dw_64)),
+        feat=(max_err(dx_k[:, f], dx_p[:, f]), tol64(dx_p[:, f],
+                                                     dx_64[:, f])),
+        zero=float(dx_k[:, :63].abs().max() + dx_k[:, 83:].abs().max()))
+    print(f"   K7 at N={len(x)} vs float64: forward kernel "
+          f"{max_err(o_k.double(), m64(x.double())):.3e}; dW kernel "
+          f"{max_err(dw_k.double(), dw_64):.3e} / twin "
+          f"{max_err(dw_p.double(), dw_64):.3e} (max |dW| "
+          f"{float(dw_64.abs().max()):.3e}); d feats kernel "
+          f"{max_err(dx_k[:, f].double(), dx_64[:, f]):.3e} / twin "
+          f"{max_err(dx_p[:, f].double(), dx_64[:, f]):.3e}")
+    return out
+
+
+def k7_entries(kernels, x, m, gen, failures):
+    """Phase 6c's K7: forward and backward against their twins and a
+    float64 run of the twin at the step's x and at a ragged N, the weight
+    streams against their Python packings, dW bit-identical over two
+    calls, the forward with and without saving its state, and the
+    kernels-line entries (bound in 3xTF32, the f32 one beside it)."""
+    import torch
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    src7 = "mvsnerf_tpu_torch/csrc/mlp_v0_train.cu"
+    rep7 = "mvsnerf_tpu/ops/pallas_mlp.py:318"
+    packed = rf.pack_v0_weights(m)
+    streams = k7.mlp_v0_streams(packed)
+    same = (torch.equal(streams[:rf.TC_TOTAL], rf.pack_v0_weights_tc(packed))
+            and torch.equal(streams[rf.TC_TOTAL:],
+                            rf.pack_v0_weights_tct(packed)))
+    print(f"   K7 weight streams equal to pack_v0_weights_tc / _tct: {same}")
+    check(same, "K7's weight streams differ from their Python packings",
+          failures)
+    # samples at a ReLU kink get a zero cotangent: float32 puts them
+    # on either side of it, and their gradients then differ by design
+    kink7 = k7.relu_margin(m, x) <= KINK
+    g7 = torch.randn((len(x), 4), device=x.device, generator=gen) / len(x)
+    g7[kink7] = 0.0
+    print(f"   K7 bwd: {int(kink7.sum())} of {len(x)} samples at a ReLU "
+          f"kink, cotangent zeroed")
+    n_r = len(x) - 37  # a ragged N: the last tile of 128 samples partial
+    m64 = copy.deepcopy(m).double()
+    for xs, gs in ((x, g7), (x[:n_r].contiguous(), g7[:n_r].contiguous())):
+        r = k7_pair(xs, gs, m, m64, packed)
+        for what, (err, tol) in (("forward", r["fwd"]), ("dW", r["dw"]),
+                                 ("d feats", r["feat"])):
+            print(f"   K7 at N={len(xs)}: {what} err {err:.3e} (tol "
+                  f"{tol:.1e})")
+            check(err <= tol, f"K7 {what} disagrees with the twin at N="
+                  f"{len(xs)}", failures)
+        print(f"   K7 at N={len(xs)}: PE / view-direction slices max |dx| "
+              f"{r['zero']} (must be 0)")
+        check(r["zero"] == 0.0, "K7 returned a non-zero PE / view gradient",
+              failures)
+        if len(xs) == len(x):
+            full = r
+    scratch = full["scratch"]
+    dx2, dw2 = k7.mlp_v0_bwd_kernel(g7, x, packed, scratch)
+    same = torch.equal(dw2, full["dw_k"]) and torch.equal(dx2, full["dx_k"])
+    print(f"   K7 bwd: two calls bit-identical (dW, dx): {same}")
+    check(same, "K7's backward is not deterministic", failures)
+    x_r = x.clone().requires_grad_()
+    kernel_entry(kernels, "K7 mlp_v0 (fwd)", src7, rep7, *full["fwd"],
+                 lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
+                 lambda: m(x), None, nbytes(x, packed, full["o_k"]),
+                 mlp_flops(len(x)), RENDER_TC_PASSES)
+    kernel_entry(kernels, "K7 mlp_v0 (bwd)", src7, rep7, *full["dw"],
+                 lambda: k7.mlp_v0_bwd_kernel(g7, x, packed, scratch),
+                 grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7),
+                 None, nbytes(g7, x, packed, full["dx_k"], full["dw_k"]),
+                 mlp_flops(len(x), True), RENDER_TC_PASSES,
+                 dfeat_max_abs_err=full["feat"][0])
+    # the saved state against recomputing it: the forward's products alone
+    # (no state written) are what a backward that recomputed would add
+    bare = device_total(lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch,
+                                                     save=False))
+    fwd, bwd = kernels[-2], kernels[-1]
+    print(f"   K7 saved state: {k7.STATE_FLOATS} floats a sample "
+          f"({k7.STATE_FLOATS * 4 * len(x) / 1e6:.1f} MB at N={len(x)}); "
+          f"forward on the device {fwd['device_ms']:.4f} ms saving it, "
+          f"{bare:.4f} ms without")
+    print(f"   K7 wrapper host time (events - device): forward "
+          f"{fwd['ms'] - fwd['device_ms']:.4f} ms, backward "
+          f"{bwd['ms'] - bwd['device_ms']:.4f} ms")
+    fwd["device_nosave_ms"] = bare
+
+
 def finetune_phase(dev, mlp, mvsnet, failures):
     """Phase 6; returns the K5 and K7 entries of the kernels line."""
     import torch
     from mvsnerf_tpu_torch.ops import mlp_train as k7
     from mvsnerf_tpu_torch.ops.color_warp import color_warp
-    from mvsnerf_tpu_torch.ops.render_fused import pack_v0_weights
 
     t0 = time.perf_counter()
     scene = FinetuneScene(np.random.default_rng(SEED + 2))
@@ -784,65 +899,15 @@ def finetune_phase(dev, mlp, mvsnet, failures):
                    step_ndc(system, rays, gen), gen)
         x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
         m = system.mlp
-        packed = pack_v0_weights(m)
-        wt = pack_v0_weights(m, transposed=True)
-        scratch = k7.mlp_v0_scratch(len(x), dev)
-        o_k, o_p = k7.mlp_v0_fwd_kernel(x, packed, scratch), m(x)
-        kernel_entry(kernels, "K7 mlp_v0 (fwd)", src7, rep7,
-                     max_err(o_k, o_p), TOL_K7 * (1 + float(o_p.abs().max())),
-                     lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
-                     lambda: m(x), None, nbytes(x, packed, o_k),
-                     mlp_flops(len(x)))
-        # samples at a ReLU kink get a zero cotangent: float32 puts them
-        # on either side of it, and their gradients then differ by design
-        kink7 = k7.relu_margin(m, x) <= KINK
-        g7 = torch.randn(o_p.shape, device=dev, generator=gen) / len(x)
-        g7[kink7] = 0.0
-        dx_k, dw_k = k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch)
-        dx_p, dw_p = k7.mlp_v0_bwd_plain(m, x, g7)
-        dx_64, dw_64 = k7.mlp_v0_bwd_plain(copy.deepcopy(m).double(),
-                                           x.double(), g7.double())
-        f = slice(63, 83)
-
-        def tol64(plain, ref):
-            return TOL_K7_BWD * max(max_err(plain.double(), ref),
-                                    1e-6 * float(ref.abs().max()))
-
-        feat_err = max_err(dx_k[:, f], dx_p[:, f])
-        feat_tol = tol64(dx_p[:, f], dx_64[:, f])
-        zero = float(dx_k[:, :63].abs().max() + dx_k[:, 83:].abs().max())
-        x_r = x.clone().requires_grad_()
-        kernel_entry(kernels, "K7 mlp_v0 (bwd)", src7, rep7,
-                     max_err(dw_k, dw_p), tol64(dw_p, dw_64),
-                     lambda: k7.mlp_v0_bwd_kernel(g7, packed, wt, scratch),
-                     grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7),
-                     None, nbytes(g7, x, packed, dx_k, dw_k),
-                     mlp_flops(len(x), True), dfeat_max_abs_err=feat_err)
-        print(f"   K7 bwd: {int(kink7.sum())} of {len(x)} samples at a ReLU "
-              f"kink, cotangent zeroed")
-        print(f"   K7 bwd vs float64: dW kernel "
-              f"{max_err(dw_k.double(), dw_64):.3e} / twin "
-              f"{max_err(dw_p.double(), dw_64):.3e} (max |dW| "
-              f"{float(dw_64.abs().max()):.3e}); d feats kernel "
-              f"{max_err(dx_k[:, f].double(), dx_64[:, f]):.3e} / twin "
-              f"{max_err(dx_p[:, f].double(), dx_64[:, f]):.3e} (max "
-              f"{float(dx_64[:, f].abs().max()):.3e})")
-        print(f"   K7 bwd: d feats err {feat_err:.3e} (tol {feat_tol:.1e}), "
-              f"PE / view-direction slices max |dx| {zero} (must be 0)")
-        check(feat_err <= feat_tol, "K7 d feats disagree with the twin",
-              failures)
-        check(zero == 0.0, "K7 returned a non-zero PE / view gradient",
-              failures)
-        del x, x_r, scratch, o_k, o_p, g7, dx_k, dw_k, dx_p, dw_p, dx_64, \
-            dw_64
+        k7_entries(kernels, x, m, gen, failures)
     report(6, kernels, failures)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
     # ---- (d) device time of one step by kernel group
     from torch.profiler import ProfilerActivity, profile
-    groups = {"K7": ("mlp_fwd_kernel", "mlp_bwd_kernel", "mlp_dw_kernel",
-                     "reduce_partials"),
+    groups = {"K7": ("mlp_pack_kernel", "mlp_fwd_kernel", "mlp_delta_kernel",
+                     "mlp_dw_kernel", "mlp_dw_reduce"),
               "K5 fwd": ("gather_kernel",), "K5 bwd": ("splat_kernel",),
               "K4": ("color_warp_kernel",),
               "Adam (multi_tensor_apply)": ("multi_tensor_apply",),
@@ -914,7 +979,7 @@ def generalizable_sample(rng):
 # backward.
 STEP_MARKS = [("sweep_kernel", "K1", "CostRegNet fwd"),
               ("color_warp_kernel", "render fwd + loss", None),
-              ("mlp_bwd_kernel", "render bwd", None),
+              ("mlp_delta_kernel", "render bwd", None),
               ("splat_kernel", "render bwd", "CostRegNet bwd"),
               ("sweep_bwd_kernel", "K2", "FeatureNet bwd"),
               ("multi_tensor_apply", "Adam", None)]
@@ -2255,10 +2320,13 @@ def main():
     print(f"   render body (K6, K6b, K8): "
           f"{_build.library().render_v0_smem_bytes()} bytes of dynamic shared "
           f"memory a block, beside ptxas's static report")
-    mma = {name: n for name, n in sass_mma_counts(
-        _build.library()._name).items() if "render_v0_kernel" in name}
+    sass = sass_mma_counts(_build.library()._name)
+    mma = {name: n for name, n in sass.items() if "render_v0_kernel" in name}
     print(f"[2 sass] tensor-core instructions (HMMA / HGMMA) in the render "
           f"body's forms: {mma}")
+    mma7 = {key: sum(n for name, n in sass.items() if key in name)
+            for key in K7_TC_KERNELS}
+    print(f"[2 sass] tensor-core instructions in K7's kernels: {mma7}")
 
     gen = torch.Generator().manual_seed(SEED)
     mlp = seeded_init_(MVSNeRF(device=dev), gen).eval()
@@ -2274,6 +2342,8 @@ def main():
     kernels, failures = [], []
     check(len(mma) == 3 and all(mma.values()), "the render body's forms "
           "have no tensor-core instructions", failures)
+    check(all(mma7.values()), "a K7 kernel has no tensor-core instructions",
+          failures)
     with torch.no_grad():
         volume, imgs01, nf, pose_t = ev.build_volume(imgs_norm, projs,
                                                      NEAR_FAR, pose_src)

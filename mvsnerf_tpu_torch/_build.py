@@ -59,12 +59,13 @@ SIGNATURES = {
     "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, ndc, gvol, n_samples, D, HP, WP, C, stream
     "volume_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, out, N, n_weights, scratch (or null), stream
-    "mlp_v0_fwd": [_P, _P, _P, _I, _I, _P, _P],
-    # g, w, wt, scratch, partial, dw, dx, N, n_splits, n_weights, stream
-    "mlp_v0_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # N -> floats of scratch mlp_v0_bwd needs
-    "mlp_v0_scratch_floats": [_I],
+    # w, streams, n_weights, stream
+    "mlp_v0_pack": [_P, _P, _I, _P],
+    # x, w, out, N, n_weights, scratch, its floats, save, stream
+    "mlp_v0_fwd": [_P, _P, _P, _I, _I, _P, _L, _I, _P],
+    # g, x, w, scratch, its floats, work, its floats, dw, dx, N, n_splits,
+    # n_weights, stream
+    "mlp_v0_bwd": [_P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _P],
     # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stride, stream
     "conv3d_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stream
@@ -76,7 +77,6 @@ SIGNATURES = {
     "conv3d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
 }
-RESTYPES = {"mlp_v0_scratch_floats": ctypes.c_longlong}  # else c_int
 
 _lib = None
 build_log = ""
@@ -144,7 +144,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 

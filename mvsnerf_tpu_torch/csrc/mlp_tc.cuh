@@ -68,6 +68,30 @@ static_assert(TC_FEATURE == TC_PTS_5 + 192 * 128 * 2, "v0 stream");
 static_assert(TC_VIEWS == TC_FEATURE + 128 * 128 * 2, "v0 stream");
 static_assert(TC_TOTAL == TC_VIEWS + 128 * 64 * 2, "v0 stream");
 
+// ---- the transposed stream of K7's backward (pack_v0_weights_tct), in
+// the order its deltas read it: each layer's W^T as a padded (K = out,
+// N = in) matrix, hi/lo fragments as above, so that d input = d pre . W^T
+constexpr int TCT_VIEWS = 0;        // views_linears.0 K 64, N 128 (feat)
+constexpr int TCT_FEATURE = 16384;  // feature_linear  K 128, N 128
+constexpr int TCT_PTS_5 = 49152;    // pts_linears.5   K 128, N 128 (h only)
+constexpr int TCT_PTS_4 = 81920;    // pts_linears.4-1 K 128, N 128
+constexpr int TCT_PTS_3 = 114688;
+constexpr int TCT_PTS_2 = 147456;
+constexpr int TCT_PTS_1 = 180224;
+constexpr int TCT_PTS_BIAS = 212992;  // pts_bias K 128, N 24 (20 + 4 zero)
+constexpr int TCT_TOTAL = 219136;
+static_assert(TCT_FEATURE == TCT_VIEWS + 64 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_5 == TCT_FEATURE + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_4 == TCT_PTS_5 + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_3 == TCT_PTS_4 + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_2 == TCT_PTS_3 + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_1 == TCT_PTS_2 + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_PTS_BIAS == TCT_PTS_1 + 128 * 128 * 2, "v0 T stream");
+static_assert(TCT_TOTAL == TCT_PTS_BIAS + 128 * 24 * 2, "v0 T stream");
+// pts_bias's 16 k-steps of 384 floats lie in one chunk of the stream
+static_assert(TCT_PTS_BIAS % CHUNK == 0 && TCT_TOTAL - TCT_PTS_BIAS <= CHUNK,
+              "v0 T stream");
+
 // ---- TF32 split and the m16n8k8 product
 // x rounded to TF32 as `cvt.rna.tf32.f32` rounds a finite x (to nearest,
 // ties away from zero), in two full-rate integer operations: add half a
@@ -207,7 +231,13 @@ struct WeightStream {
 // matrix A (16-byte aligned rows; conflict-free when its row stride lda %
 // 32 == 4); B the next `ksteps` k-steps of the stream (n columns), this
 // warp's n-tiles nb0 .. nb0 + NT - 1. 3xTF32, the small terms first.
-template <int MT, int NT, class Stream>
+//
+// FRESH: each k-step's three passes go into a zeroed fragment, which is
+// then added to acc in f32 (round to nearest). The tensor core truncates
+// the low bits of its accumulator input as it adds, so chaining every
+// k-step through one fragment biases a long sum by up to ~2^-23 of it a
+// step; K7's gradients, differences of such sums, need the f32 add.
+template <bool FRESH = false, int MT, int NT, class Stream>
 __device__ __forceinline__ void mma_ksteps(float (&acc)[MT][NT][4],
                                            const float* A, int lda, int row0,
                                            int ksteps, Stream& ws, int n,
@@ -237,9 +267,18 @@ __device__ __forceinline__ void mma_ksteps(float (&acc)[MT][NT][4],
       const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        mma(acc[mi][ni], al[mi], bh0, bh1);
-        mma(acc[mi][ni], ah[mi], bl0, bl1);
-        mma(acc[mi][ni], ah[mi], bh0, bh1);
+        if (FRESH) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma(t, al[mi], bh0, bh1);
+          mma(t, ah[mi], bl0, bl1);
+          mma(t, ah[mi], bh0, bh1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += t[e];
+        } else {
+          mma(acc[mi][ni], al[mi], bh0, bh1);
+          mma(acc[mi][ni], ah[mi], bl0, bl1);
+          mma(acc[mi][ni], ah[mi], bh0, bh1);
+        }
       }
     }
   }

@@ -9,33 +9,43 @@ zeros for the PE and view-direction slices of x (geometry and view
 directions are never trainable).
 
 For CUDA tensors it is a `torch.autograd.Function` over (x, packed
-weights) that launches csrc/mlp_v0_train.cu: the forward, which also saves
-the backward's inputs to a scratch buffer held between the two, and the
-backward's three kernels (deltas, dW, the fixed-order sum). The packed
-vector is `pack_v0_weights(mlp)`, built without detaching, so its gradient
-flows back through `torch.cat` onto the module's own nn.Linear
-parameters. For CPU tensors it is the module's forward with the PE and
-view-direction slices of x detached, which gives the same contract; any
-other device raises. `mlp_v0_train_plain` is the module's forward under
-autograd, the twin the kernel is held against.
+weights) that launches csrc/mlp_v0_train.cu on the tensor cores (3xTF32,
+float32-equivalent): the forward (one kernel that splits the weights into
+the forward and transposed TF32 streams, then the MLP, which saves 1,092
+floats a sample of state into a buffer held until the backward) and the
+backward's three kernels (every delta; dW and db over fixed sample
+ranges; the fixed-order sum). The packed vector is `pack_v0_weights(mlp)`,
+built without detaching, so its gradient flows back through `torch.cat`
+onto the module's own nn.Linear parameters. For CPU tensors it is the
+module's forward with the PE and view-direction slices of x detached,
+which gives the same contract; any other device raises.
+`mlp_v0_train_plain` is the module's forward under autograd, the twin the
+kernel is held against.
 
 Replaces mvsnerf_tpu/ops/pallas_mlp.py:318 `mlp_v0_train`, reached from
 the fine-tune step through `resolve_mlp_impl(training=True)`
-(render/renderer.py:212-232, 254-261). What bounds it on the H100: f32 FMA
-issue, ~125k multiply-adds per sample forward and about twice that
-backward, and ~4.5 GB of scratch traffic per 131,072 samples.
-"""
+(render/renderer.py:212-232, 254-261). What bounds it on the H100: the
+products, ~1.25e5 multiply-adds a sample forward and twice that backward,
+each run three times on the tensor cores, and the state and delta traffic,
+~3.2 GB per 131,072 samples (4.4 KB a sample written by the forward and
+read by the deltas, 4.3 KB of deltas written, ~12 KB read by dW)."""
 
 from __future__ import annotations
 
 import torch
 
 from .._build import check, library, stream_of
-from .render_fused import _LAYERS, N_WEIGHTS, pack_v0_weights
+from .render_fused import _LAYERS, N_WEIGHTS, TC_TOTAL, TCT_TOTAL, \
+    pack_v0_weights
 
 IN_PTS, IN_FEAT, IN_VIEWS = 63, 20, 3
 IN_CH = IN_PTS + IN_FEAT + IN_VIEWS
-N_SPLITS = 11  # sample ranges of the dW kernel (csrc/mlp_v0_train.cu)
+# sample ranges a block-unit of the dW kernel (csrc/mlp_v0_train.cu: 33
+# units, so 33 x N_SPLITS blocks: 132, one wave on the H100's 132 SMs)
+N_SPLITS = 4
+STATE_FLOATS = 1092  # floats K7's forward saves a sample (ST_ROWS)
+TILE = 128  # samples a block of K7's forward and delta kernels (ROWS)
+HEAD_FLOATS = 516  # the heads' weight gradients a tile (HEADS)
 
 
 def mlp_v0_train_plain(mlp, x):
@@ -91,13 +101,12 @@ def relu_margin(mlp, x):
     return margin
 
 
-def _check_args(x, packed, wt):
+def _check_args(x, packed):
     dev = x.device
-    if x.dim() != 2 or x.shape[1] != IN_CH or packed.shape != (N_WEIGHTS,) \
-            or wt.shape != (N_WEIGHTS,):
+    if x.dim() != 2 or x.shape[1] != IN_CH or packed.shape != (N_WEIGHTS,):
         raise ValueError(f"mlp kernel: bad shapes x {tuple(x.shape)}, "
-                         f"weights {tuple(packed.shape)}, {tuple(wt.shape)}")
-    for name, t in (("x", x), ("packed", packed), ("wt", wt)):
+                         f"weights {tuple(packed.shape)}")
+    for name, t in (("x", x), ("packed", packed)):
         if t.device != dev or t.dtype != torch.float32 or \
                 not t.is_contiguous():
             raise ValueError(f"mlp kernel: {name} must be contiguous "
@@ -106,51 +115,83 @@ def _check_args(x, packed, wt):
         raise ValueError(f"mlp kernel: {x.shape[0]} samples exceed int32")
 
 
-def mlp_v0_scratch(n: int, device):
-    """The scratch K7's forward fills for its backward, for n samples."""
-    return torch.empty(library().mlp_v0_scratch_floats(n), device=device)
+def scratch_floats(n: int) -> int:
+    """Floats of the buffer K7's forward fills for its backward (csrc
+    checks the count): the two weight streams, then STATE_FLOATS a sample
+    in whole tiles of TILE samples."""
+    return TC_TOTAL + TCT_TOTAL + -(-n // TILE) * TILE * STATE_FLOATS
 
 
-def mlp_v0_fwd_kernel(x, packed, scratch):
-    """K7 forward on the card: (N, 4) from (N, 86) x (no autograd); also
-    saves what the backward reads into `scratch`, a `mlp_v0_scratch(N)`."""
-    _check_args(x, packed, packed)
-    if scratch.device != x.device or scratch.dtype != torch.float32 or \
-            scratch.numel() != library().mlp_v0_scratch_floats(len(x)):
+def work_floats(n: int) -> int:
+    """Floats of the backward's own buffer: the deltas (as many as the
+    state), the heads' weight gradients a tile, then the dW kernel's
+    partial sums."""
+    return -(-n // TILE) * (TILE * STATE_FLOATS + HEAD_FLOATS) + \
+        4 * N_SPLITS * N_WEIGHTS
+
+
+def _check_scratch(scratch, n, dev):
+    if scratch.device != dev or scratch.dtype != torch.float32 or \
+            not scratch.is_contiguous() or scratch.numel() != \
+            scratch_floats(n):
         raise ValueError("mlp kernel: scratch is not mlp_v0_scratch(N)")
+
+
+def mlp_v0_scratch(n: int, device):
+    """The buffer K7's forward fills for its backward, for n samples."""
+    return torch.empty(scratch_floats(n), device=device)
+
+
+def mlp_v0_streams(packed):
+    """The weight streams K7's forward writes (`mlp_pack_kernel`): the
+    forward stream, as `pack_v0_weights_tc`, then the transposed one, as
+    `pack_v0_weights_tct`; (TC_TOTAL + TCT_TOTAL,). For checks: the
+    forward writes its own."""
+    if packed.shape != (N_WEIGHTS,) or packed.dtype != torch.float32 or \
+            not packed.is_contiguous():
+        raise ValueError("mlp kernel: packed must be contiguous float32 "
+                         f"({N_WEIGHTS},)")
+    out = torch.empty(TC_TOTAL + TCT_TOTAL, device=packed.device)
+    rc = library().mlp_v0_pack(packed.data_ptr(), out.data_ptr(), N_WEIGHTS,
+                               stream_of(packed))
+    check(rc, "mlp_v0_pack")
+    return out
+
+
+def mlp_v0_fwd_kernel(x, packed, scratch, save=True):
+    """K7 forward on the card: (N, 4) from (N, 86) x (no autograd); fills
+    `scratch`, a `mlp_v0_scratch(N)`, with the weight streams and (with
+    `save`) the state the backward reads."""
+    _check_args(x, packed)
+    _check_scratch(scratch, len(x), x.device)
     out = torch.empty((x.shape[0], 4), device=x.device)
     rc = library().mlp_v0_fwd(
         x.data_ptr(), packed.data_ptr(), out.data_ptr(), x.shape[0],
-        N_WEIGHTS, scratch.data_ptr(), stream_of(x))
+        N_WEIGHTS, scratch.data_ptr(), scratch.numel(), int(save),
+        stream_of(x))
     check(rc, "mlp_v0_fwd")
     mlp_v0_train.launches += 1
     return out
 
 
-def mlp_v0_bwd_kernel(g, packed, wt, scratch):
-    """K7 backward on the card, from the scratch its forward filled: (dx
-    (N, 86) with only the feats slice non-zero, packed dW (N_WEIGHTS,)) for
-    the (N, 4) cotangent `g`."""
-    n = g.shape[0]
-    if g.dim() != 2 or g.shape[1] != 4 or n < 1 or \
+def mlp_v0_bwd_kernel(g, x, packed, scratch):
+    """K7 backward on the card, from the scratch its forward filled on the
+    same x: (dx (N, 86) with only the feats slice non-zero, packed dW
+    (N_WEIGHTS,)) for the (N, 4) cotangent `g`."""
+    _check_args(x, packed)
+    n = x.shape[0]
+    if g.shape != (n, 4) or n < 1 or g.device != x.device or \
             g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError(f"mlp kernel: bad cotangent {tuple(g.shape)} "
-                         f"{g.dtype}")
-    lib = library()
-    if scratch.numel() != lib.mlp_v0_scratch_floats(n):
-        raise ValueError("mlp kernel: scratch is not mlp_v0_scratch(N)")
-    for name, t in (("packed", packed), ("wt", wt), ("scratch", scratch)):
-        if t.device != g.device or t.dtype != torch.float32 or \
-                not t.is_contiguous() or \
-                (name != "scratch" and t.shape != (N_WEIGHTS,)):
-            raise ValueError(f"mlp kernel: bad {name}")
-    partial = torch.empty((N_SPLITS, N_WEIGHTS), device=g.device)
+                         f"{g.dtype} for {n} samples")
+    _check_scratch(scratch, n, x.device)
+    work = torch.empty(work_floats(n), device=g.device)
     dw = torch.empty(N_WEIGHTS, device=g.device)
-    dx = torch.zeros((n, IN_CH), device=g.device)
-    rc = lib.mlp_v0_bwd(
-        g.data_ptr(), packed.data_ptr(), wt.data_ptr(), scratch.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), dx.data_ptr(), n, N_SPLITS,
-        N_WEIGHTS, stream_of(g))
+    dx = torch.empty((n, IN_CH), device=g.device)
+    rc = library().mlp_v0_bwd(
+        g.data_ptr(), x.data_ptr(), packed.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), work.data_ptr(), work.numel(), dw.data_ptr(),
+        dx.data_ptr(), n, N_SPLITS, N_WEIGHTS, stream_of(g))
     check(rc, "mlp_v0_bwd")
     mlp_v0_train.bwd_launches += 1
     return dx, dw
@@ -159,17 +200,17 @@ def mlp_v0_bwd_kernel(g, packed, wt, scratch):
 class _MLPv0Train(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, packed, wt):
-        ctx.save_for_backward(packed, wt)
+    def forward(ctx, x, packed):
+        ctx.save_for_backward(x, packed)
         ctx.scratch = mlp_v0_scratch(len(x), x.device)
         return mlp_v0_fwd_kernel(x, packed, ctx.scratch)
 
     @staticmethod
     def backward(ctx, g):
-        packed, wt = ctx.saved_tensors
-        dx, dw = mlp_v0_bwd_kernel(g.contiguous(), packed, wt, ctx.scratch)
+        x, packed = ctx.saved_tensors
+        dx, dw = mlp_v0_bwd_kernel(g.contiguous(), x, packed, ctx.scratch)
         del ctx.scratch
-        return dx, dw, None
+        return dx, dw
 
 
 def mlp_v0_train(mlp, x):
@@ -182,10 +223,8 @@ def mlp_v0_train(mlp, x):
     if x.device.type != "cuda":
         raise ValueError(f"mlp_v0_train: no kernel for {x.device}")
     lead = x.shape[:-1]
-    packed = pack_v0_weights(mlp)
-    with torch.no_grad():
-        wt = pack_v0_weights(mlp, transposed=True)
-    out = _MLPv0Train.apply(x.reshape(-1, IN_CH).contiguous(), packed, wt)
+    out = _MLPv0Train.apply(x.reshape(-1, IN_CH).contiguous(),
+                            pack_v0_weights(mlp))
     return out.reshape(*lead, 4)
 
 

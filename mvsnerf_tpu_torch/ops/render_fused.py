@@ -135,12 +135,63 @@ def pack_v0_weights_tc(weights):
     return torch.cat([hi, lo], 1).reshape(-1)
 
 
-def pack_v0_weights(mlp, transposed: bool = False):
+# The transposed stream of K7's backward (csrc/mlp_tc.cuh `TCT_*`), in the
+# order its deltas read it: (the header's offset name, packed layer, the
+# layer's input row at each padded N column or -1 for a zero column, K =
+# the layer's outputs). Layer `name`'s (K, N) matrix is W^T: column n is
+# input row `rows[n]` (pts_linears.5: its h rows only; pts_bias: 20 + 4).
+TCT_LAYERS = (
+    ("TCT_VIEWS", "views_linears.0", list(range(128)), 64),
+    ("TCT_FEATURE", "feature_linear", list(range(128)), 128),
+    ("TCT_PTS_5", "pts_linears.5", list(range(63, 191)), 128),
+    *((f"TCT_PTS_{i}", f"pts_linears.{i}", list(range(128)), 128)
+      for i in range(4, 0, -1)),
+    ("TCT_PTS_BIAS", "pts_bias", list(range(20)) + [_PAD] * 4, 128))
+
+
+def _tct_offsets():
+    """Offset name -> offset in floats of each transposed layer (K x N x 2
+    floats), and the stream's length."""
+    offsets, pos = {}, 0
+    for name, _, cols, k in TCT_LAYERS:
+        offsets[name] = pos
+        pos += k * len(cols) * 2
+    return offsets, pos
+
+
+TCT_OFFSETS, TCT_TOTAL = _tct_offsets()
+
+
+@functools.lru_cache(maxsize=None)
+def _tct_index(device):
+    """`_tc_index` for the transposed stream."""
+    offsets, width = _pack_offsets(), dict((n, o) for n, _, o in _LAYERS)
+    parts = []
+    for _, layer, cols, k in TCT_LAYERS:
+        m = torch.full((k, len(cols)), N_WEIGHTS, dtype=torch.long)
+        for n, r in enumerate(cols):
+            if r != _PAD:
+                m[:, n] = offsets[layer] + r * width[layer] + torch.arange(k)
+        parts.append(fragment_order(m).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+def pack_v0_weights_tct(weights):
+    """The transposed stream of K7's backward from `pack_v0_weights`'
+    vector, laid out and split as `pack_v0_weights_tc`'s; (TCT_TOTAL,)
+    float32. On a card K7 writes it with its own kernel
+    (csrc/mlp_v0_train.cu `mlp_pack_kernel`); this is its reference."""
+    ext = torch.cat([weights, weights.new_zeros(1)])
+    pairs = ext[_tct_index(weights.device)].view(-1, 2)
+    hi, lo = split_tf32(pairs)
+    return torch.cat([hi, lo], 1).reshape(-1)
+
+
+def pack_v0_weights(mlp):
     """The v0 MLP's weights as the kernels read them: for each layer of
-    `_LAYERS`, the (in, out) matrix row-major, then the bias. With
-    `transposed`, each matrix is stored (out, in) instead (nn.Linear's own
-    layout) at the same offsets. Built without detaching, so a gradient of
-    the packed vector flows back onto the module's parameters."""
+    `_LAYERS`, the (in, out) matrix row-major, then the bias. Built without
+    detaching, so a gradient of the packed vector flows back onto the
+    module's parameters."""
     parts = []
     for name, n_in, n_out in _LAYERS:
         lin = mlp.nerf.get_submodule(name)
@@ -148,8 +199,7 @@ def pack_v0_weights(mlp, transposed: bool = False):
             raise ValueError(f"v0 kernel: {name} is "
                              f"{tuple(lin.weight.shape)}, want "
                              f"({n_out}, {n_in})")
-        w = lin.weight if transposed else lin.weight.t()
-        parts += [w.reshape(-1), lin.bias]
+        parts += [lin.weight.t().reshape(-1), lin.bias]
     return torch.cat(parts).float().contiguous()
 
 
