@@ -332,6 +332,8 @@ HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 RENDER_TC_PASSES = 3
 # K7's kernels that run products on the tensor cores (csrc/mlp_v0_train.cu)
 K7_TC_KERNELS = ("mlp_fwd_kernel", "mlp_delta_kernel", "mlp_dw_kernel")
+# K10's kernels on the tensor cores (stride 1 and every weight gradient)
+K10_TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_wgrad_tc_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -1096,8 +1098,8 @@ def report_step_grads(phase, n_rays, k, k_again, p, p64, failures):
 def profile_steps(phase, system, sample, gen, failures):
     """`torch.profiler` over 2 steps (with their batch copies): device time
     by group (`step_groups`), and a check that no operation copied a
-    cost-volume-sized tensor. Returns the groups, or None when the
-    profiler saw no device time."""
+    cost-volume-sized tensor. Returns (the groups, the kernel names in
+    launch order), or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1137,7 +1139,25 @@ def profile_steps(phase, system, sample, gen, failures):
         print(f"   {grp}: {us / 2e3:.3f} ms/step ({100 * us / total:.1f} %)")
         for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
             print(f"      {t / 2e3:8.3f}  {name[:100]}")
-    return groups
+    return groups, [n for _, n, _ in events]
+
+
+def is_k10(name):
+    return "conv3d_" in name or "wgrad_reduce" in name
+
+
+def unet_spans(names):
+    """The kernels launched inside the U-Net's forward and backward: in
+    each stretch between two step marks (STEP_MARKS), those from its first
+    K10 kernel to its last."""
+    marks = [i for i, n in enumerate(names)
+             if any(m[0] in n for m in STEP_MARKS)]
+    inside = []
+    for a, b in zip([-1] + marks, marks + [len(names)]):
+        k10 = [i for i in range(a + 1, b) if is_k10(names[i])]
+        if k10:
+            inside += names[k10[0]:k10[-1] + 1]
+    return inside
 
 
 def generalizable_system(dev, mlp, mvsnet, extra=""):
@@ -1371,7 +1391,9 @@ def k10_taps(n_out, n_in, stride, up=False):
 
 def k10_call_bound(op, args, out):
     """`bound` of one K10 call: its inputs and output once over the memory
-    rate, and 2 x the multiply-adds its taps inside the volume need."""
+    rate, and 2 x the multiply-adds its taps inside the volume need; the
+    stride-1 and weight-gradient calls run them on the tensor cores in
+    three TF32 passes (the f32 bound beside it as `bound_f32_ms`)."""
     a, b, third = args
     if op == "conv3d_wgrad":   # (g, x, stride) -> (A, B, 3, 3, 3)
         taps = [k10_taps(n, m, third) for n, m in zip(a.shape[2:],
@@ -1385,7 +1407,9 @@ def k10_call_bound(op, args, out):
         taps = [k10_taps(n, m, third) for n, m in zip(out.shape[2:],
                                                        a.shape[2:])]
         macs = b.shape[0] * b.shape[1]
-    return bound(nbytes(a, b, out), 2 * macs * math.prod(taps))
+    tc = op == "conv3d_wgrad" or (op == "conv3d_fwd" and third == 1)
+    return bound(nbytes(a, b, out), 2 * macs * math.prod(taps),
+                 tc_passes=3 if tc else 0)
 
 
 def record_k10_calls(system, batch, draws):
@@ -1485,6 +1509,7 @@ def k10_kernel_entries(system, batch, draws, failures):
                       plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                       by={"bytes": 0.0, "operations": 0.0})
             for key in K10_ENTRIES}
+    device_keys = ("device_ms", "device_library_ms", "bound_f32_ms")
     for layer, kind in K10_LAYERS:
         rec = layers[layer]
         for direction in ("forward", "dgrad", "wgrad"):
@@ -1508,9 +1533,8 @@ def k10_kernel_entries(system, batch, draws, failures):
                      cuda_ms(lambda: plain_of[op](*args)),
                      cuda_ms(library)]
             dev = ""
-            # the stride-2 calls, whose CUDA-event times sit close to
-            # cuDNN's, are also timed on the device
-            if key == "s2":
+            # every call but the up kernel's is also timed on the device
+            if key != "up":
                 d = (device_total(lambda: kernel_of[op](*args)),
                      device_total(library))
                 s = sums[key]
@@ -1519,6 +1543,10 @@ def k10_kernel_entries(system, batch, draws, failures):
                     s.get("device_library_ms", 0.0) + d[1]
                 dev = (f"; device (torch.profiler) kernel {d[0]:.4f} ms, "
                        f"cuDNN {d[1]:.4f} ms")
+            if "bound_f32_ms" in b:
+                sums[key]["bound_f32_ms"] = \
+                    sums[key].get("bound_f32_ms", 0.0) + b["bound_f32_ms"]
+                dev += f"; f32 bound {b['bound_f32_ms']:.4f} ms"
             print(f"[8 kernel] {layer} {direction} ({key}, "
                   f"{'x'.join(map(str, args[0].shape[1:]))} -> "
                   f"{'x'.join(map(str, out_k.shape[1:]))}): max_abs_err "
@@ -1538,8 +1566,7 @@ def k10_kernel_entries(system, batch, draws, failures):
     entries = []
     for key, (name, replaces) in K10_ENTRIES.items():
         s = sums[key]
-        device = {k: s[k] for k in ("device_ms", "device_library_ms")
-                  if k in s}
+        device = {k: s[k] for k in device_keys if k in s}
         entries.append(dict(
             name=name, route="cuda",
             source="mvsnerf_tpu_torch/csrc/conv3d.cu", replaces=replaces,
@@ -1675,26 +1702,36 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
 
     # ---- (e) device time of 2 dband steps by group; no convolution
     # library kernel in the U-Net's stages and no cost-volume copy
-    groups = profile_steps(8, system, sample, gen, failures)
-    if groups is not None:
+    profiled = profile_steps(8, system, sample, gen, failures)
+    if profiled is not None:
+        groups, order = profiled
         stray = sorted({name for grp in ("CostRegNet fwd", "CostRegNet bwd")
                         for name in groups[grp]
-                        if "conv3d_" not in name and
-                        "wgrad_reduce" not in name and
+                        if not is_k10(name) and
                         any(f in name.lower() for f in CONV_LIBRARY_NAMES)})
         k10_us = {}
         for grp in ("CostRegNet fwd", "CostRegNet bwd"):
             mine = {name: us for name, us in groups[grp].items()
-                    if "conv3d_" in name or "wgrad_reduce" in name}
+                    if is_k10(name)}
             k10_us[grp] = sum(mine.values())
             print(f"[8 profile] {grp}: K10 {k10_us[grp] / 2e3:.3f} of "
                   f"{sum(groups[grp].values()) / 2e3:.3f} ms/step")
             for name, us in sorted(mine.items(), key=lambda kv: -kv[1]):
                 print(f"      {us / 2e3:8.3f}  {name[:100]}")
+        # cuBLAS GEMMs inside the U-Net's own span (the stages also hold
+        # the rays' and projections' small products, outside it)
+        span = unet_spans(order)
+        gemm = sorted({name for name in span if "gemm" in name.lower()})
+        others = sorted({name.split("(")[0][:60] for name in span
+                         if not is_k10(name)})
+        print(f"[8 profile] the U-Net's span: {len(span)} kernels over 2 "
+              f"steps; besides K10: {others}")
         print(f"[8 profile] convolution library kernels in the U-Net's "
-              f"stages: {stray}")
+              f"stages: {stray}; cuBLAS GEMMs between its first and last "
+              f"K10 kernel: {gemm}")
         check(not stray, "a library convolution ran in the dband U-Net",
               failures)
+        check(not gemm, "a cuBLAS GEMM ran in the dband U-Net", failures)
         check(all(k10_us.values()), "the profile shows no K10 kernel in "
                                     "the U-Net's stages", failures)
     return entries
@@ -2327,6 +2364,9 @@ def main():
     mma7 = {key: sum(n for name, n in sass.items() if key in name)
             for key in K7_TC_KERNELS}
     print(f"[2 sass] tensor-core instructions in K7's kernels: {mma7}")
+    mma10 = {key: sum(n for name, n in sass.items() if key in name)
+             for key in K10_TC_KERNELS}
+    print(f"[2 sass] tensor-core instructions in K10's kernels: {mma10}")
 
     gen = torch.Generator().manual_seed(SEED)
     mlp = seeded_init_(MVSNeRF(device=dev), gen).eval()
@@ -2344,6 +2384,8 @@ def main():
           "have no tensor-core instructions", failures)
     check(all(mma7.values()), "a K7 kernel has no tensor-core instructions",
           failures)
+    check(all(mma10.values()), "a K10 kernel has no tensor-core "
+          "instructions", failures)
     with torch.no_grad():
         volume, imgs01, nf, pose_t = ev.build_volume(imgs_norm, projs,
                                                      NEAR_FAR, pose_src)

@@ -66,12 +66,15 @@ SIGNATURES = {
     # g, x, w, scratch, its floats, work, its floats, dw, dx, N, n_splits,
     # n_weights, stream
     "mlp_v0_bwd": [_P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _P],
-    # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stride, stream
-    "conv3d_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, packed, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stride, packed's
+    # floats, stream
+    "conv3d_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     # x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stream
     "conv3d_up": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # A, B, Dg, Hg, Wg -> rows of the partial buffer conv3d_wgrad needs
-    "conv3d_wgrad_splits": [_I, _I, _I, _I, _I],
+    # A, B, Dg, Hg, Wg, stride -> rows of the partial buffer conv3d_wgrad
+    # needs
+    "conv3d_wgrad_splits": [_I, _I, _I, _I, _I, _I],
     # g, x, partial, dw, A, B, Dg, Hg, Wg, Dx, Hx, Wx, stride, n_splits,
     # stream
     "conv3d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -2,65 +2,128 @@
 // gradients, for the `--costreg_impl dband` route.
 //
 // Replaces the TPU kernels of mvsnerf_tpu/ops/pallas_costreg.py:
-//   conv3d_s1_dband (:210, pallas_call :238)   -> conv3d_fwd_kernel<1>
+//   conv3d_s1_dband (:210, pallas_call :238)   -> conv3d_s1_tc_kernel
+//                                                 (+ conv3d_pack_kernel)
 //   conv3d_s2_dband (:337, pallas_call :365)   -> conv3d_s2_pair_kernel
 //                                                 (conv3d_fwd_kernel<2>
 //                                                 where W % 4 != 0)
 //   conv3d_up_dband (:480, pallas_call :513)   -> conv3d_up_kernel
-//   _s1_wgrad_dband (:597, pallas_call :612)   -> conv3d_wgrad_kernel<1>
-//   _s2_wgrad_dband (:707, pallas_call :722)   -> conv3d_wgrad_kernel<2>
+//   _s1_wgrad_dband (:597, pallas_call :612)   -> conv3d_wgrad_tc_kernel<1>
+//   _s2_wgrad_dband (:707, pallas_call :722)   -> conv3d_wgrad_tc_kernel<2>
 //                                                 + wgrad_reduce_kernel
 // The TPU kernels turn each depth band into a banded (Cin*win, Cout*P)
 // matrix for the MXU, pad W to 128 lanes, split stride-2 inputs into even
 // and odd columns and stream row windows through VMEM. None of that layout
 // carries over: here every kernel reads the NCDHW activations (batch 1) in
-// place and does the arithmetic of the dense convolution, f32 multiply-adds
-// with f32 accumulation (no TF32).
+// place and computes the dense convolution with float32 accuracy.
 //
 // Weights keep PyTorch's layouts: Conv3d (Cout, Cin, 3, 3, 3) and
 // ConvTranspose3d (Cin, Cout, 3, 3, 3). All three gradients of the U-Net
 // reduce to these kernels (ops/costreg_conv.py):
-//   s1 dgrad = conv3d_fwd<1> on the flipped, in/out-swapped kernel;
+//   s1 dgrad = the s1 forward on the flipped, in/out-swapped kernel;
 //   s2 dgrad = conv3d_up on the s2 kernel as stored;
-//   up dgrad = conv3d_fwd<2> on the up kernel as stored;
-//   wgrad    = conv3d_wgrad<s>: dW[a, b, k] = sum_o g[a, o] x[b, s o + k - 1]
-//              (the up kernel's by duality, with g = its input and x = its
+//   up dgrad = the s2 forward on the up kernel as stored;
+//   wgrad    = dW[a, b, k] = sum_o g[a, o] x[b, s o + k - 1] (the up
+//              kernel's by duality, with g = its input and x = its
 //              output's cotangent).
 //
-// conv3d_fwd: one thread per output voxel with a tile of COT output
-// channels in registers; the block's weights for a chunk of input channels
-// sit in shared memory as [channel, tap][COT] rows, read as broadcast
-// float4s. At stride 2 (with W % 4 == 0, as every DTU layer has) a thread
-// takes a pair of W outputs instead: one float4 and a shuffle feed both
+// ---- Stride 1 and every weight gradient: implicit GEMMs on the tensor
+// cores in 3xTF32 (`mma.sync.m16n8k8`, csrc/mlp_tc.cuh). Each float32
+// operand is split once, where it is staged into shared memory, into hi =
+// x rounded to TF32 and lo = the remainder (read by the tensor core to
+// TF32); a product is lo(a).hi(b) + hi(a).lo(b) + hi(a).hi(b). Each
+// k-step's three passes go into a zeroed fragment that is then added to
+// the float32 accumulators (as `mma_ksteps<true>`): the tensor core
+// truncates as it accumulates, and a weight gradient sums up to 4.7M
+// voxels.
+//
+// The K order of the forward (and the M order of wgrad) is (chunk of CC =
+// 8 input channels, tap, channel in the chunk), flattened: a full chunk
+// is 27 k-steps, one tap x 8 channels each, and only the last, partial
+// chunk pads, once, to a multiple of 8 (conv0's forward: K 1107 -> 1112,
+// not the 1296 of padding 41 channels to 48).
+//
+// Staging, both kernels: a block's next item (a chunk of a box, or a box)
+// lands raw in shared memory by `cp.async` while the current item's
+// products run (halo rows as aligned 16-byte groups where the rows start
+// on 16 bytes, else float by float), then all threads split it into the
+// hi and lo buffers between two barriers.
+//
+// conv3d_s1_tc_kernel: M = output voxels, N = Cout padded to 8, K = 27 x
+// Cin. A block owns a 2 x 4 x 32 box of outputs and 8 warps of 2 m-tiles
+// (16-voxel W runs); per chunk it stages the box's halo of the chunk's
+// channels with a channel stride = 8 mod 32, so that the 32 lanes of an A
+// fragment (8 voxels x 4 channels) hit 32 banks; a full chunk's tap
+// offsets are constants of the loop over kw, the partial chunk's come
+// from a table. B (the weights) is packed once a call by
+// conv3d_pack_kernel in fragment order, hi and lo, one float4 a lane a
+// (k-step, n-tile). With one n-tile (conv0's forward), or one chunk and
+// one n-tile group (conv0's dgrad, 83 KB of hi/lo: one block a SM), each
+// chunk's B lands in shared memory with the halo; otherwise it is read
+// through L1 (conv6's 885 KB fit no block), which the staged halo shares.
+// What bounds it: the fragment loads from shared memory beside the
+// `mma`s, not the tensor pipe's rate. An A fragment costs 8 32-bit loads
+// (hi and lo, 8 wavefronts) and feeds 3 `mma`s per n-tile, so conv0's
+// forward (Cout 8) needs ~1.3 ms of shared reads at 128 B a clock against
+// ~0.5 ms of 3xTF32 products; conv0's dgrad (N 48, each A fragment into
+// 18 `mma`s) reads 6 B float4s a k-step beside them. A clock64 split of both
+// kernels' blocks on the card put most of their time in the product loop,
+// little in the waits for the staged data. Measured times: PERF.md.
+//
+// conv3d_wgrad_tc_kernel<S>: dW^T[(b, tap), a] = sum_v x[b, S v + tap - 1]
+// g[a, v]; M = (chunk, tap, channel) rows, one chunk a block (<= 14
+// m-tiles, two a warp), N = A padded to 8 (up to 32 a block at stride 1,
+// 16 at stride 2), K = the gradient's voxels in boxes of TD x TH x 32, 8
+// consecutive W a k-step. Per box a block stages the x halo of its chunk
+// (channel stride = 4 mod 32: rows g of a fragment are channels, columns
+// t voxels at stride S) and the box's g rows ([a][voxel], row stride = 4
+// mod 32); each lane's row offsets into the x halo are fixed for the
+// block. The boxes are cut into fixed runs (`wgrad_plan`), each writing
+// its partial sums; wgrad_reduce_kernel adds the runs in order. No
+// atomics: dW is bit-identical over calls. Bound as the forward: conv0's
+// wgrad (N 8) by shared reads and the staging of a 3.2x halo a box.
+//
+// Tried on the card and not kept (slower): staging through registers one
+// item ahead (spills at 2 blocks a SM); three blocks a SM without the raw
+// buffer; producer warps staging for consumer warps (the producers' loads
+// set the pace); voxel-major tiles read as 64- and 128-bit fragment loads;
+// wgrad's g read as one float4 a lane; a shared-memory carveout leaving
+// more L1 (no change).
+//
+// `mma.sync` rather than `wgmma`, as in csrc/mlp_tc.cuh: A is an im2col
+// view, gathered per lane from the staged halo, not a canonical tile.
+//
+// ---- Stride 2 and the transposed convolution: f32 FMAs (SIMT).
+// conv3d_fwd_kernel<2>: one thread per output voxel with a tile of COT
+// output channels in registers; the block's weights for a chunk of input
+// channels sit in shared memory as [channel, tap][COT] rows, read as
+// broadcast float4s. With W % 4 == 0 (every DTU layer) a thread takes a
+// pair of W outputs instead: one float4 and a shuffle feed both
 // (conv3d_s2_pair_kernel), and the blocks are sized to give every SM the
 // same load. conv3d_up: gather form, one thread per pair of W outputs (2m,
 // 2m+1), which share their input taps; only taps of matching parity are
-// visited, so no atomics. conv3d_wgrad: an implicit GEMM, M = A output
-// rows, N = B x 27 (channel, tap) columns, K = the gradient's voxels in
-// stages of KC along a W row, split into fixed runs of stages; a block
-// stages g's KC voxels and, per (b, kd, kh) row key, the one x row segment
-// its three kw taps read at shifts of 0, 1, 2, so each staged value feeds
-// 3 taps x 4 channels of a thread's accumulators; each run writes its
-// partial sums to a scratch buffer and a last kernel adds the runs in
-// order. No atomics: deterministic.
-//
-// What bounds it on the H100: f32 FMA issue (55.7 G multiply-adds for the
-// U-Net's forward at DTU size, as many for each gradient); the bytes (the
-// 768 MB cost volume read once is 0.23 ms) are far below. The forward's
-// and the up kernel's inner loops issue one L1 load and a shared-memory
-// broadcast per COT multiply-adds; wgrad's inner loop one shared float4
-// and one or two shared floats per 12. PERF.md has the measured times per
-// layer.
+// visited, so no atomics. They are bound by f32 FMA issue; PERF.md has the
+// measured times per layer.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mlp_tc.cuh"
 
 namespace {
 
+using mlp_tc::mma;
+using mlp_tc::split;
+using mlp_tc::tf32_rna;
+
 constexpr int THREADS = 256;
 constexpr int WCHUNK = 256;  // COT x input channels per weight chunk
-constexpr int KC = 32;       // voxels (along W) per wgrad stage
 constexpr int SMS_FALLBACK = 132;
 constexpr int PAIR_MAX_THREADS = 640;  // the paired s2 kernel's largest block
+// the tensor-core kernels: input channels a staged chunk, and the W extent
+// of a tile (two 16-voxel m-tiles, four 8-voxel k-steps)
+constexpr int CC = 8;
+constexpr int TW = 32;
 
 int sm_count() {
   static int sms = 0;
@@ -342,93 +405,476 @@ conv3d_up_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// wgrad partials: P[split][a][n] = sum over the split's voxels o of
-// g[a, o] x[b, S o + k - 1], n = b * 27 + k. The voxels go in stages of
-// KC along one W row of g; the three kw taps of a (b, kd, kh) row key read
-// one staged x row segment of S (KC - 1) + 3 values at shifts 0, 1, 2.
-// Tile: MT gradient channels x RK row keys (3 RK columns); each thread
-// owns 4 channels x 1 row key x 3 taps.
-template <int S, int MT>
-__global__ void __launch_bounds__(THREADS)
-conv3d_wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                    float* __restrict__ partial, int A, int B, int Dg, int Hg,
-                    int Wg, int Dx, int Hx, int Wx, int stages_per_split) {
-  constexpr int RK = THREADS * 4 / MT;          // row keys per tile
-  constexpr int SPAN = (S * (KC - 1) + 3) | 1;  // odd: no bank conflicts
-  __shared__ __align__(16) float sg[KC][MT + 4];
-  __shared__ float sx[RK][SPAN];
-  const int n_keys = B * 9, N = B * 27;
-  const int k0 = blockIdx.x * RK, a0 = blockIdx.y * MT;
-  const int segs = (Wg + KC - 1) / KC;
-  const int n_stages = Dg * Hg * segs;
-  const int t_begin = blockIdx.z * stages_per_split;
-  const int t_end = min(n_stages, t_begin + stages_per_split);
-  const int plane_x = Dx * Hx * Wx, plane_g = Dg * Hg * Wg;
-  const int tid = threadIdx.x, tx = tid % RK, ty = tid / RK;
-  float acc[4][3];
+// ---- the tensor-core kernels
+
+// the smallest stride >= n that is r mod 32
+__host__ __device__ constexpr int pad_stride(int n, int r) {
+  return (n - r + 31) / 32 * 32 + r;
+}
+
+// k-steps of the (chunk, tap, channel) K order over Cin channels: 27 a
+// full chunk, the partial one's 27 nc taps rounded up to 8
+__host__ __device__ constexpr int k_steps(int cin) {
+  return 27 * (cin / CC) + (27 * (cin % CC) + 7) / 8;
+}
+
+// the offset of tap (kd, kh, kw) in a halo of rows pw, planes plane
+__host__ __device__ constexpr int tap_offset(int tap, int pw, int plane) {
+  return tap / 9 * plane + tap / 3 % 3 * pw + tap % 3;
+}
+
+// B of the stride-1 GEMM: bp[(ks * n_nt + nb) * 32 + lane] = {hi(b0),
+// hi(b1), lo(b0), lo(b1)}, b0 = W[k = 8 ks + t][co = 8 nb + g], b1 at k +
+// 4 (lane = 4 g + t), K in the (chunk, tap, channel) order, zero beyond
+// Cin's 27 Cin rows and Cout's columns; lo is rounded to TF32 too
+__global__ void conv3d_pack_kernel(const float* __restrict__ w,
+                                   float4* __restrict__ bp, int Cin,
+                                   int Cout, int n_nt) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= k_steps(Cin) * n_nt * 32) return;
+  const int lane = i & 31, nb = (i >> 5) % n_nt, ks = (i >> 5) / n_nt;
+  const int co = 8 * nb + (lane >> 2);
+  float v[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 2; ++j) {
+    const int k = 8 * ks + (lane & 3) + 4 * j, q = k / (27 * CC);
+    const int nc = min(CC, Cin - CC * q), kl = k - 27 * CC * q;
+    v[j] = co < Cout && kl < 27 * nc
+               ? w[((long long)co * Cin + CC * q + kl % nc) * 27 + kl / nc]
+               : 0.f;
+  }
+  const uint32_t h0 = tf32_rna(v[0]), h1 = tf32_rna(v[1]);
+  bp[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                      __uint_as_float(tf32_rna(v[0] - __uint_as_float(h0))),
+                      __uint_as_float(tf32_rna(v[1] - __uint_as_float(h1))));
+}
+
+// the 3xTF32 product of one k-step into acc, through a zeroed fragment
+__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, al, bh0, bh1);
+  mma(t, ah, bl0, bl1);
+  mma(t, ah, bh0, bh1);
 #pragma unroll
-    for (int j = 0; j < 3; ++j) acc[i][j] = 0.f;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int row = t / segs, ow0 = (t % segs) * KC;
-    const int oh = row % Hg, od = row / Hg;
-    __syncthreads();
-    for (int i = tid; i < KC * MT; i += THREADS) {
-      const int kk = i % KC, a = i / KC;
-      const int ow = ow0 + kk;
-      sg[kk][a] = (ow < Wg && a0 + a < A)
-                      ? __ldg(g + (long long)(a0 + a) * plane_g +
-                              row * Wg + ow)
-                      : 0.f;
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// value v split into hi and lo at hi[i], lo[i]
+__device__ __forceinline__ void put_split(float* hi, float* lo, int i,
+                                          float v) {
+  uint32_t h, l;
+  split(v, h, l);
+  hi[i] = __uint_as_float(h);
+  lo[i] = __uint_as_float(l);
+}
+
+// 4 bytes from global to shared memory without holding a register: dst =
+// *src where ok, else 0 (cp.async's zero fill; src is then not read)
+__device__ __forceinline__ void load_async(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   mlp_tc::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes from global to shared memory, not through L1: dst = *src
+// where ok, else 16 zero bytes
+__device__ __forceinline__ void load_async16(void* dst, const void* src,
+                                             bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   mlp_tc::smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// A warp's copy of one halo row into raw row dst of RW floats: raw column
+// k holds input column col0 - 4 + k of the row src (w columns; zeros off
+// it, or where !row_ok). With vec (16-byte rows, w % 4 == 0) in aligned
+// 16-byte groups, else float by float. `any` is a valid address.
+template <int RW>
+__device__ __forceinline__ void fetch_row(float* dst, const float* src,
+                                          bool row_ok, int col0, int w,
+                                          bool vec, const float* any) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {
+    for (int l = lane; l < RW / 4; l += 32) {
+      const int col = col0 - 4 + 4 * l;
+      const bool ok = row_ok && col >= 0 && col < w;
+      load_async16(dst + 4 * l, ok ? src + col : any, ok);
     }
-    for (int i = tid; i < RK * SPAN; i += THREADS) {
-      const int j = i % SPAN, r = i / SPAN, key = k0 + r;
-      const int kd = key % 9 / 3, kh = key % 3;
-      const int id = S * od + kd - 1, ih = S * oh + kh - 1,
-                iw = S * ow0 + j - 1;
-      float v = 0.f;
-      if (key < n_keys && id >= 0 && id < Dx && ih >= 0 && ih < Hx &&
-          iw >= 0 && iw < Wx)
-        v = __ldg(x + (key / 9) * plane_x + (id * Hx + ih) * Wx + iw);
-      sx[r][j] = v;
+  } else {
+    for (int k = lane; k < RW; k += 32) {
+      const int col = col0 - 4 + k;
+      const bool ok = row_ok && col >= 0 && col < w;
+      load_async(dst + k, ok ? src + col : any, ok);
     }
-    __syncthreads();
-    const float* xr = sx[tx];
-    float x0 = xr[0], x1 = xr[1], x2 = xr[2];
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sg[kk][ty * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
+  }
+}
+
+// Split raw rows (RW floats, columns 3 .. PW + 2 used) of n_rows into hi
+// and lo rows of PW floats: raw row r = (channel, row of ROWS) lands at
+// channel * CS + row * PW. Every thread of the block, a float4 at a time.
+template <int RW, int PW, int ROWS, int CS>
+__device__ __forceinline__ void split_rows(float* hi, float* lo,
+                                           const float* raw, int n_rows,
+                                           int tid, int nt) {
+  static_assert(RW % 4 == 0 && RW >= PW + 3, "raw rows");
+  for (int e = 4 * tid; e < n_rows * RW; e += 4 * nt) {
+    const int r = e / RW, col = e % RW;
+    const int o = r / ROWS * CS + r % ROWS * PW + col - 3;
+    const float4 v = *reinterpret_cast<const float4*>(raw + e);
+    const float f[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(a4[i], x0, acc[i][0]);
-        acc[i][1] = fmaf(a4[i], x1, acc[i][1]);
-        acc[i][2] = fmaf(a4[i], x2, acc[i][2]);
+    for (int j = 0; j < 4; ++j)
+      if (col + j >= 3 && col + j < PW + 3) put_split(hi, lo, o + j, f[j]);
+  }
+}
+
+// raw[i .. i + 3] split into hi and lo at o .. o + 3 (16-byte aligned)
+__device__ __forceinline__ void put_split4(float* hi, float* lo, int o,
+                                           const float* raw) {
+  const float4 v = *reinterpret_cast<const float4*>(raw);
+  uint32_t h[4], l[4];
+  split(v.x, h[0], l[0]);
+  split(v.y, h[1], l[1]);
+  split(v.z, h[2], l[2]);
+  split(v.w, h[3], l[3]);
+  *reinterpret_cast<float4*>(hi + o) =
+      make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                  __uint_as_float(h[2]), __uint_as_float(h[3]));
+  *reinterpret_cast<float4*>(lo + o) =
+      make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                  __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The stride-1 forward's tile: a 2 x 4 x TW box of outputs, 8 warps of 2
+// m-tiles (16-voxel W runs); a chunk's halo lands raw (rows of RW floats)
+// while the last chunk's products run, and is split into hi and lo, a
+// channel CS floats apart (= 8 mod 32)
+struct S1Tile {
+  static constexpr int MT = 2, TD = 2, TH = 4;
+  static constexpr int PH = TH + 2, PW = TW + 2, PLANE = PH * PW;
+  static constexpr int HALO = (TD + 2) * PLANE;
+  static constexpr int RW = TW + 8;  // a raw row: 16-byte groups
+  static constexpr int RAW = CC * (TD + 2) * PH * RW;
+  static constexpr int CS = pad_stride(HALO, 8);
+  static constexpr int TABLE = 27 * CC;  // the partial chunk's offsets
+  static constexpr int SMEM = (2 * CC * CS + RAW + TABLE) * 4;
+  // B in shared memory (SB): a chunk's k-steps for n n-tiles, two
+  // buffers where there are several chunks
+  static int b_smem(int n_nt, int cin) {
+    return (cin > CC ? 2 : 1) * 27 * n_nt * 32 * 16;
+  }
+  static_assert(8 * MT == TD * TH * TW / 16, "a warp's m-tiles");
+  static_assert(CS % 4 == 0 && RAW % 4 == 0 && TABLE % 4 == 0,
+                "16-byte rows");
+};
+
+// y[co, o] = sum over k = (chunk, tap, channel) of x[c, o + tap - 1]
+// B[k, co]: stride 1, pad 1, y the size of x. Block (box, n-tile group):
+// n-tiles NT blockIdx.y .. + NT - 1 of n_nt. SB (one n-tile group): each
+// chunk's B lands in shared memory with its halo, in buffer q & 1; else B
+// is read through L1, which it would share with the staged halo.
+template <int NT, bool SB>
+__global__ void __launch_bounds__(THREADS, 2)
+    conv3d_s1_tc_kernel(const float* __restrict__ x,
+                        const float4* __restrict__ bp, float* __restrict__ y,
+                        int Cin, int Cout, int D, int H, int W, int nbh,
+                        int nbw, int n_nt, int vec) {
+  using T = S1Tile;
+  constexpr int MT = T::MT;
+  extern __shared__ __align__(16) float smem[];
+  float* sh = smem;                 // [channel][halo], hi
+  float* sl = sh + CC * T::CS;      // lo
+  float* raw = sl + CC * T::CS;     // the next chunk, [channel][halo]
+  int* toff = reinterpret_cast<int*>(raw + T::RAW);
+  float4* sb = reinterpret_cast<float4*>(toff + T::TABLE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bw = blockIdx.x % nbw, bh = blockIdx.x / nbw % nbh,
+            bd = blockIdx.x / nbw / nbh;
+  const int od0 = bd * T::TD, oh0 = bh * T::TH, ow0 = bw * TW;
+  const int nb0 = blockIdx.y * NT;
+  const long long plane = (long long)D * H * W;
+  int base[MT];  // row g of m-tile mi in the halo (row g + 8 at + 8)
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    const int m = warp + 8 * mi;
+    base[mi] = m / (2 * T::TH) * T::PLANE + (m >> 1) % T::TH * T::PW +
+               (m & 1) * 16 + g;
+  }
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // chunk q's halo into raw: a warp a (channel, plane, row), lanes along W
+  const auto fetch = [&](int q) {
+    const int nc = min(CC, Cin - CC * q);
+    constexpr int ROWS = (T::TD + 2) * T::PH;
+    for (int r = warp; r < nc * ROWS; r += THREADS / 32) {
+      const int c = r / ROWS, pd = r % ROWS / T::PH, ph = r % T::PH;
+      const int id = od0 - 1 + pd, ih = oh0 - 1 + ph;
+      const bool row_ok = id >= 0 && id < D && ih >= 0 && ih < H;
+      const float* src =
+          x + (CC * q + c) * plane + ((long long)id * H + ih) * W;
+      fetch_row<T::RW>(raw + r * T::RW, src, row_ok, ow0, W, vec, x);
+    }
+    if (SB)
+      for (int i = tid; i < (27 * nc + 7) / 8 * n_nt * 32; i += THREADS)
+        load_async16(sb + (q & 1) * 27 * n_nt * 32 + i,
+                     bp + 27 * 32 * n_nt * q + i);
+  };
+
+  // one k-step: A's rows at this lane's voxels, columns at halo offsets
+  // o0 (channel t) and o1 (channel t + 4); B from bk
+  const auto kstep = [&](const float4* __restrict__ bk, int o0, int o1) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const float *ph = sh + base[mi], *pl = sl + base[mi];
+      ah[mi][0] = __float_as_uint(ph[o0]);
+      ah[mi][1] = __float_as_uint(ph[o0 + 8]);
+      ah[mi][2] = __float_as_uint(ph[o1]);
+      ah[mi][3] = __float_as_uint(ph[o1 + 8]);
+      al[mi][0] = __float_as_uint(pl[o0]);
+      al[mi][1] = __float_as_uint(pl[o0 + 8]);
+      al[mi][2] = __float_as_uint(pl[o1]);
+      al[mi][3] = __float_as_uint(pl[o1 + 8]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      if (nb0 + ni >= n_nt) break;
+      const float4 b = SB ? bk[ni * 32] : __ldg(bk + (nb0 + ni) * 32);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        mma3(acc[mi][ni], ah[mi], al[mi], __float_as_uint(b.x),
+             __float_as_uint(b.y), __float_as_uint(b.z),
+             __float_as_uint(b.w));
+    }
+  };
+
+  fetch(0);
+  for (int q = 0; CC * q < Cin; ++q) {
+    const int nc = min(CC, Cin - CC * q);
+    wait_async();
+    __syncthreads();  // raw holds chunk q; the last chunk's products done
+    split_rows<T::RW, T::PW, (T::TD + 2) * T::PH, T::CS>(
+        sh, sl, raw, nc * (T::TD + 2) * T::PH, tid, THREADS);
+    if (nc < CC)  // k = tap nc + c; the padding reads channel 0 (B is 0)
+      for (int k = tid; k < T::TABLE; k += THREADS)
+        toff[k] = k < 27 * nc ? k % nc * T::CS +
+                                    tap_offset(k / nc, T::PW, T::PLANE)
+                              : 0;
+    __syncthreads();
+    if (CC * (q + 1) < Cin) fetch(q + 1);  // lands during the products
+    const float4* bq = SB ? sb + (q & 1) * 27 * n_nt * 32 + lane
+                          : bp + (long long)27 * q * n_nt * 32 + lane;
+    if (nc == CC) {
+#pragma unroll 1
+      for (int kdh = 0; kdh < 9; ++kdh) {  // taps 3 kdh .. 3 kdh + 2
+        const int to = kdh / 3 * T::PLANE + kdh % 3 * T::PW;
+        const float4* bk = bq + 3 * kdh * n_nt * 32;
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
+          kstep(bk + kw * n_nt * 32, t * T::CS + to + kw,
+                (t + 4) * T::CS + to + kw);
       }
-      if (kk + 1 < KC) {  // the taps of voxel kk + 1: shifted by S
-        if (S == 1) {
-          x0 = x1;
-          x1 = x2;
-          x2 = xr[kk + 3];
-        } else {
-          x0 = x2;
-          x1 = xr[2 * kk + 3];
-          x2 = xr[2 * kk + 4];
+    } else {
+      const int ks_n = (27 * nc + 7) / 8;
+      for (int ks = 0; ks < ks_n; ++ks)
+        kstep(bq + ks * n_nt * 32, toff[8 * ks + t], toff[8 * ks + t + 4]);
+    }
+  }
+
+  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    const int m = warp + 8 * mi;
+    const int od = od0 + m / (2 * T::TH), oh = oh0 + (m >> 1) % T::TH;
+    if (od >= D || oh >= H) continue;
+    const long long row = ((long long)od * H + oh) * W;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ow = ow0 + (m & 1) * 16 + g + 8 * h;
+      if (ow >= W) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = 8 * (nb0 + ni) + 2 * t + e;
+          if (co < Cout) y[co * plane + row + ow] = acc[mi][ni][2 * h + e];
         }
+    }
+  }
+}
+
+// The weight gradient's tile: boxes of TD x TH x TW gradient voxels; the
+// x halo of a channel CS floats apart (= 4 mod 32), g's rows LG apart; a
+// box's x halo (rows of RW floats) and g rows land raw while the last
+// box's products run
+template <int S, int NT>
+struct WgTile {
+  static constexpr int TD = S == 1 && NT == 1 ? 2 : 1, TH = S == 1 ? 4 : 2;
+  static constexpr int TV = TD * TH * TW;  // voxels a box: TV / 8 k-steps
+  static constexpr int PH = S * (TH - 1) + 3, PW = S * (TW - 1) + 3;
+  static constexpr int PLANE = PH * PW, PD = S * (TD - 1) + 3;
+  static constexpr int HALO = PD * PLANE;
+  static constexpr int CS = pad_stride(HALO, 4);
+  static constexpr int LG = TV + 4;
+  // a raw x row: 16-byte groups from S ow0 - 4 past S (TW - 1) + 1
+  static constexpr int RW = 4 + (S * (TW - 1) + 5) / 4 * 4;
+  static constexpr int RAWX = CC * PD * PH * RW;
+  static constexpr int RAW = RAWX + 8 * NT * TV;
+  static constexpr int SMEM = (2 * (CC * CS + 8 * NT * LG) + RAW) * 4;
+  static_assert(CS % 4 == 0 && LG % 4 == 0 && RAWX % 4 == 0,
+                "16-byte rows");
+  static_assert(LG % 32 == 4, "g rows on distinct banks");
+};
+
+// partial[z][a][b * 27 + tap] = sum over box run z's voxels v of g[a, v]
+// x[b, S v + tap - 1]. Block (chunk blockIdx.x of CC input channels,
+// gradient channels 8 NT blockIdx.y .., run blockIdx.z).
+template <int S, int NT>
+__global__ void __launch_bounds__(THREADS, 2)
+    conv3d_wgrad_tc_kernel(const float* __restrict__ gr,
+                           const float* __restrict__ x,
+                           float* __restrict__ partial, int A, int B, int Dg,
+                           int Hg, int Wg, int Dx, int Hx, int Wx, int nbh,
+                           int nbw, int n_boxes, int per_run, int vec_x,
+                           int vec_g) {
+  using T = WgTile<S, NT>;
+  extern __shared__ __align__(16) float smem[];
+  float* xh = smem;                 // [channel][halo]
+  float* xl = xh + CC * T::CS;
+  float* gh = xl + CC * T::CS;      // [a][voxel of the box]
+  float* gl = gh + 8 * NT * T::LG;
+  float* raw = gl + 8 * NT * T::LG;  // the next box: x halo, then g rows
+  float* graw = raw + T::RAWX;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q = blockIdx.x, a0 = 8 * NT * blockIdx.y;
+  const int nc = min(CC, B - CC * q), rows = 27 * nc;
+  const int n_mt = (rows + 15) / 16, na = min(8 * NT, A - a0);
+  const long long plane_x = (long long)Dx * Hx * Wx,
+                  plane_g = (long long)Dg * Hg * Wg;
+  // rows 16 (warp + 8 mi) + g + 8 h = tap nc + c: their halo offsets
+  int roff[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * (warp + 8 * mi) + g + 8 * h;
+      roff[mi][h] =
+          r < rows ? r % nc * T::CS + tap_offset(r / nc, T::PW, T::PLANE) : 0;
+    }
+  const bool live[2] = {warp < n_mt, warp + 8 < n_mt};
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // a box's x halo (a warp a (channel, plane, row)) and g rows (a warp a
+  // (a, plane, row)) into raw, lanes along W
+  const auto fetch = [&](int box) {
+    const int bw = box % nbw, bh = box / nbw % nbh, bd = box / nbw / nbh;
+    const int od0 = bd * T::TD, oh0 = bh * T::TH, ow0 = bw * TW;
+    constexpr int XROWS = T::PD * T::PH;
+    for (int r = warp; r < nc * XROWS; r += THREADS / 32) {
+      const int c = r / XROWS, pd = r % XROWS / T::PH, ph = r % T::PH;
+      const int id = S * od0 - 1 + pd, ih = S * oh0 - 1 + ph;
+      const bool row_ok = id >= 0 && id < Dx && ih >= 0 && ih < Hx;
+      const float* src =
+          x + (CC * q + c) * plane_x + ((long long)id * Hx + ih) * Wx;
+      fetch_row<T::RW>(raw + r * T::RW, src, row_ok, S * ow0, Wx, vec_x, x);
+    }
+    // g rows: TW floats from column ow0 (fetch_row's col0 - 4)
+    for (int r = warp; r < na * T::TD * T::TH; r += THREADS / 32) {
+      const int od = od0 + r % (T::TD * T::TH) / T::TH,
+                oh = oh0 + r % T::TH;
+      const bool ok = od < Dg && oh < Hg;
+      const float* src = gr + (a0 + r / (T::TD * T::TH)) * plane_g +
+                         ((long long)od * Hg + oh) * Wg;
+      fetch_row<TW>(graw + r * TW, src, ok, ow0 + 4, Wg, vec_g, gr);
+    }
+  };
+
+  const int box_end = min(n_boxes, (blockIdx.z + 1) * per_run);
+  if (blockIdx.z * per_run < box_end) fetch(blockIdx.z * per_run);
+  for (int box = blockIdx.z * per_run; box < box_end; ++box) {
+    wait_async();
+    __syncthreads();  // raw holds this box; the last box's products done
+    split_rows<T::RW, T::PW, T::PD * T::PH, T::CS>(
+        xh, xl, raw, nc * T::PD * T::PH, tid, THREADS);
+    for (int i = 4 * tid; i < na * T::TV; i += 4 * THREADS)
+      put_split4(gh, gl, i / T::TV * T::LG + i % T::TV, graw + i);
+    __syncthreads();
+    if (box + 1 < box_end) fetch(box + 1);  // lands during the products
+#pragma unroll
+    for (int ks = 0; ks < T::TV / 8; ++ks) {
+      // voxels 8 ks .. + 7 of the box: row ks / 4, W 8 (ks % 4) ..
+      const int rr = ks / 4;
+      const int vo = S * (rr / T::TH) * T::PLANE + S * (rr % T::TH) * T::PW +
+                     S * (8 * (ks % 4) + t);
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (!live[mi]) continue;
+        const int o0 = roff[mi][0] + vo, o1 = roff[mi][1] + vo;
+        ah[mi][0] = __float_as_uint(xh[o0]);
+        ah[mi][1] = __float_as_uint(xh[o1]);
+        ah[mi][2] = __float_as_uint(xh[o0 + 4 * S]);
+        ah[mi][3] = __float_as_uint(xh[o1 + 4 * S]);
+        al[mi][0] = __float_as_uint(xl[o0]);
+        al[mi][1] = __float_as_uint(xl[o1]);
+        al[mi][2] = __float_as_uint(xl[o0 + 4 * S]);
+        al[mi][3] = __float_as_uint(xl[o1 + 4 * S]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int o = (8 * ni + g) * T::LG + 8 * ks + t;
+        const uint32_t bh0 = __float_as_uint(gh[o]),
+                       bh1 = __float_as_uint(gh[o + 4]),
+                       bl0 = __float_as_uint(gl[o]),
+                       bl1 = __float_as_uint(gl[o + 4]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          if (live[mi]) mma3(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
       }
     }
   }
-  const int key = k0 + tx;
-  if (key >= n_keys) return;
-  float* P = partial + (long long)blockIdx.z * A * N;
+
+  float* P = partial + (long long)blockIdx.z * A * B * 27;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int a = a0 + ty * 4 + i;
-    if (a >= A) break;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) P[(long long)a * N + key * 3 + j] = acc[i][j];
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * (warp + 8 * mi) + g + 8 * h;
+      if (r >= rows) continue;
+      const int col = (CC * q + r % nc) * 27 + r / nc;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int a = 8 * ni + 2 * t + e;
+          if (a < na)
+            P[(long long)(a0 + a) * B * 27 + col] = acc[mi][ni][2 * h + e];
+        }
+    }
 }
 
 // out[i] = sum of the splits' partials, in split order
@@ -464,21 +910,78 @@ void s2_pair_plan(int cout, long long n_pairs, int* cot, int* nt) {
   *nt = per_sm <= PAIR_MAX_THREADS ? (int)((per_sm + 31) / 32 * 32) : 256;
 }
 
-template <int S>
-int launch_fwd(int cot, dim3 grid, cudaStream_t st, const float* x,
-               const float* w, float* y, int Cin, int Cout, int Di, int Hi,
-               int Wi, int Do, int Ho, int Wo) {
+// The stride-1 kernel's plan: NT n-tiles a block (n_nt rounded up to 1, 2,
+// 4 or 6, and 4 a block past 6, so that a thread's accumulators and
+// fragments fit the 128 registers of two blocks a SM; 4 halved while the
+// grid has fewer than four blocks a SM)
+struct S1Plan {
+  int nt, n_nt, gy, nbh, nbw;
+  long long boxes;
+};
+
+S1Plan s1_plan(int Cout, int D, int H, int W) {
+  S1Plan p;
+  p.n_nt = (Cout + 7) / 8;
+  p.nt = p.n_nt <= 2 ? p.n_nt : p.n_nt <= 4 ? 4 : p.n_nt <= 6 ? 6 : 4;
+  p.nbh = (H + S1Tile::TH - 1) / S1Tile::TH;
+  p.nbw = (W + TW - 1) / TW;
+  p.boxes = (long long)(D + S1Tile::TD - 1) / S1Tile::TD * p.nbh * p.nbw;
+  p.gy = (p.n_nt + p.nt - 1) / p.nt;
+  if (p.nt == 4 && p.boxes * p.gy < 4 * sm_count()) {
+    p.nt = 2;
+    p.gy = (p.n_nt + 1) / 2;
+  }
+  return p;
+}
+
+// whether the rows of an NCDHW tensor of width w start on 16 bytes
+int rows16(const float* t, int w) {
+  return w % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+}
+
+// A kernel's dynamic shared memory above 48 KB: allowed once a process
+template <class Kernel>
+int allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = rc == 0;
+  return rc;
+}
+
+template <int NT, bool SB>
+int launch_s1(const S1Plan& p, cudaStream_t st, const float* x,
+              const float4* bp, float* y, int Cin, int Cout, int D, int H,
+              int W) {
+  const int vec = rows16(x, W);
+  static bool ready = false;
+  const int smem =
+      S1Tile::SMEM + (SB ? S1Tile::b_smem(p.n_nt, Cin) : 0);
+  // the most this form takes: two buffers with one n-tile, else one
+  const int most =
+      S1Tile::SMEM + (SB ? S1Tile::b_smem(NT, NT == 1 ? 2 * CC : CC) : 0);
+  if (int rc = allow_smem(conv3d_s1_tc_kernel<NT, SB>, most, ready))
+    return rc;
+  const dim3 grid((unsigned)p.boxes, p.gy);
+  conv3d_s1_tc_kernel<NT, SB><<<grid, THREADS, smem, st>>>(
+      x, bp, y, Cin, Cout, D, H, W, p.nbh, p.nbw, p.n_nt, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd2(int cot, dim3 grid, cudaStream_t st, const float* x,
+                const float* w, float* y, int Cin, int Cout, int Di, int Hi,
+                int Wi, int Do, int Ho, int Wo) {
   switch (cot) {
     case 8:
-      conv3d_fwd_kernel<S, 8><<<grid, THREADS, 0, st>>>(
+      conv3d_fwd_kernel<2, 8><<<grid, THREADS, 0, st>>>(
           x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo);
       break;
     case 16:
-      conv3d_fwd_kernel<S, 16><<<grid, THREADS, 0, st>>>(
+      conv3d_fwd_kernel<2, 16><<<grid, THREADS, 0, st>>>(
           x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo);
       break;
     default:
-      conv3d_fwd_kernel<S, 32><<<grid, THREADS, 0, st>>>(
+      conv3d_fwd_kernel<2, 32><<<grid, THREADS, 0, st>>>(
           x, w, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo);
   }
   return (int)cudaGetLastError();
@@ -494,44 +997,117 @@ int launch_s2_pair(int nt, long long n_pairs, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-int wgrad_mt(int A) { return A <= 8 ? 8 : A <= 16 ? 16 : A <= 32 ? 32 : 64; }
+// The weight gradient's plan: NT n-tiles a block (ceil(A / 8) rounded up
+// to 1, 2 or 4 at stride 1, 1 or 2 at stride 2, the most a block past
+// that: the registers and shared memory of two blocks a SM), the box
+// grid, and the boxes cut into n_runs fixed runs of per_run, about four
+// blocks a SM in all
+struct WgPlan {
+  int nt, gy, nbh, nbw, n_boxes, per_run, n_runs;
+};
 
-// (n_splits, stages per split) of a wgrad with gradient grid Dg x Hg x
-// Wg: about four blocks per SM in all
-void wgrad_plan(int A, int B, int Dg, int Hg, int Wg, int* n_splits,
-                int* per_split) {
-  const int mt = wgrad_mt(A), rk = THREADS * 4 / mt;
-  const long long tiles =
-      (long long)((A + mt - 1) / mt) * ((B * 9 + rk - 1) / rk);
-  const long long stages = (long long)Dg * Hg * ((Wg + KC - 1) / KC);
+WgPlan wgrad_plan(int A, int B, int Dg, int Hg, int Wg, int stride) {
+  WgPlan p;
+  const int n_nt = (A + 7) / 8;
+  p.nt = n_nt <= 1 ? 1 : n_nt <= 2 || stride == 2 ? 2 : 4;
+  p.gy = (n_nt + p.nt - 1) / p.nt;
+  const int td = stride == 1 && p.nt == 1 ? 2 : 1, th = stride == 1 ? 4 : 2;
+  p.nbh = (Hg + th - 1) / th;
+  p.nbw = (Wg + TW - 1) / TW;
+  const long long boxes = (long long)(Dg + td - 1) / td * p.nbh * p.nbw;
+  p.n_boxes = boxes < (1LL << 31) ? (int)boxes : 0;
+  const long long tiles = (long long)(B + CC - 1) / CC * p.gy;
   long long want = (4LL * sm_count() + tiles - 1) / tiles;
-  if (want > stages) want = stages;
+  if (want > boxes) want = boxes;
   if (want < 1) want = 1;
-  const long long c = (stages + want - 1) / want;
-  *per_split = (int)c;
-  *n_splits = (int)((stages + c - 1) / c);
+  p.per_run = (int)((boxes + want - 1) / want);
+  p.n_runs = p.per_run > 0 ? (p.n_boxes + p.per_run - 1) / p.per_run : 0;
+  return p;
+}
+
+template <int S, int NT>
+int launch_wgrad(const WgPlan& p, cudaStream_t st, const float* g,
+                 const float* x, float* partial, int A, int B, int Dg,
+                 int Hg, int Wg, int Dx, int Hx, int Wx) {
+  static bool ready = false;
+  constexpr int smem = WgTile<S, NT>::SMEM;
+  if (int rc = allow_smem(conv3d_wgrad_tc_kernel<S, NT>, smem, ready))
+    return rc;
+  const dim3 grid((B + CC - 1) / CC, p.gy, p.n_runs);
+  conv3d_wgrad_tc_kernel<S, NT><<<grid, THREADS, smem, st>>>(
+      g, x, partial, A, B, Dg, Hg, Wg, Dx, Hx, Wx, p.nbh, p.nbw, p.n_boxes,
+      p.per_run, rows16(x, Wx), rows16(g, Wg));
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_wgrad(const WgPlan& p, cudaStream_t st, const float* g,
+                 const float* x, float* partial, int A, int B, int Dg,
+                 int Hg, int Wg, int Dx, int Hx, int Wx) {
+  switch (p.nt) {
+    case 1:
+      return launch_wgrad<S, 1>(p, st, g, x, partial, A, B, Dg, Hg, Wg, Dx,
+                                Hx, Wx);
+    case 2:
+      return launch_wgrad<S, 2>(p, st, g, x, partial, A, B, Dg, Hg, Wg, Dx,
+                                Hx, Wx);
+    default:
+      return launch_wgrad<S, S == 1 ? 4 : 2>(p, st, g, x, partial, A, B, Dg,
+                                             Hg, Wg, Dx, Hx, Wx);
+  }
 }
 
 bool sizes_ok(long long a, long long b) {
   return a > 0 && b > 0 && a * b < (1LL << 31);
 }
 
+// Floats of the packed weights conv3d_fwd takes (ops/costreg_conv.py
+// `packed_floats`): the stride-1 GEMM's B as hi/lo fragments, k_steps(Cin)
+// x ceil(Cout / 8) x 32 x 4; 0 at stride 2
+long long fwd_packed_floats(int Cin, int Cout, int stride) {
+  return stride == 2 ? 0 : (long long)k_steps(Cin) * ((Cout + 7) / 8) * 128;
+}
+
 }  // namespace
 
 // y (Cout, Do, Ho, Wo) = conv(x (Cin, Di, Hi, Wi), w (Cout, Cin, 3, 3, 3)),
-// stride 1 or 2, pad 1
-extern "C" int conv3d_fwd(const void* x, const void* w, void* y, int Cin,
-                          int Cout, int Di, int Hi, int Wi, int Do, int Ho,
-                          int Wo, int stride, void* stream) {
+// stride 1 (Do = Di, ...) or 2, pad 1; packed: fwd_packed_floats floats
+// of scratch, which a stride-1 call fills with the split weights
+extern "C" int conv3d_fwd(const void* x, const void* w, void* packed,
+                          void* y, int Cin, int Cout, int Di, int Hi, int Wi,
+                          int Do, int Ho, int Wo, int stride,
+                          int packed_floats, void* stream) {
   const long long n_out = (long long)Do * Ho * Wo;
   if ((stride != 1 && stride != 2) || !sizes_ok(Cin, (long long)Di * Hi * Wi) ||
-      !sizes_ok(Cout, n_out))
+      !sizes_ok(Cout, n_out) ||
+      fwd_packed_floats(Cin, Cout, stride) != packed_floats ||
+      (stride == 1 && (Do != Di || Ho != Hi || Wo != Wi)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   auto xp = (const float*)x;
   auto wp = (const float*)w;
   auto yp = (float*)y;
-  if (stride == 2 && Wi % 4 == 0 && 2 * Wo == Wi) {
+  if (stride == 1) {
+    const S1Plan p = s1_plan(Cout, Di, Hi, Wi);
+    if (p.boxes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    auto bp = (float4*)packed;
+    conv3d_pack_kernel<<<(packed_floats / 4 + THREADS - 1) / THREADS, THREADS,
+                         0, st>>>(wp, bp, Cin, Cout, p.n_nt);
+    if (int rc = (int)cudaGetLastError()) return rc;
+    // B in shared memory with one n-tile, or one chunk and one group
+    const bool sb = p.n_nt == 1 || (Cin <= CC && p.gy == 1);
+#define K10_S1(NT_)                                                         \
+  (sb ? launch_s1<NT_, true>(p, st, xp, bp, yp, Cin, Cout, Di, Hi, Wi)      \
+      : launch_s1<NT_, false>(p, st, xp, bp, yp, Cin, Cout, Di, Hi, Wi))
+    switch (p.nt) {
+      case 1: return K10_S1(1);
+      case 2: return K10_S1(2);
+      case 4: return K10_S1(4);
+      default: return K10_S1(6);
+    }
+#undef K10_S1
+  }
+  if (Wi % 4 == 0 && 2 * Wo == Wi) {
     const long long n_pairs = n_out / 2;
     int cot, nt;
     s2_pair_plan(Cout, n_pairs, &cot, &nt);
@@ -543,11 +1119,8 @@ extern "C" int conv3d_fwd(const void* x, const void* w, void* y, int Cin,
   const long long n_blocks = (n_out + THREADS - 1) / THREADS;
   const int cot = pick_cot(Cout, n_blocks);
   const dim3 grid((unsigned)n_blocks, (Cout + cot - 1) / cot);
-  return stride == 1
-             ? launch_fwd<1>(cot, grid, st, xp, wp, yp, Cin, Cout, Di, Hi, Wi,
-                             Do, Ho, Wo)
-             : launch_fwd<2>(cot, grid, st, xp, wp, yp, Cin, Cout, Di, Hi, Wi,
-                             Do, Ho, Wo);
+  return launch_fwd2(cot, grid, st, xp, wp, yp, Cin, Cout, Di, Hi, Wi, Do,
+                     Ho, Wo);
 }
 
 // y (Cout, Do, Ho, Wo) = transposed stride-2 conv of x (Cin, Di, Hi, Wi)
@@ -583,57 +1156,43 @@ extern "C" int conv3d_up(const void* x, const void* w, void* y, int Cin,
   return (int)cudaGetLastError();
 }
 
-// The number of voxel chunks (rows of the partial buffer) of a wgrad with
-// A gradient channels, B input channels and a Dg x Hg x Wg gradient grid.
-extern "C" int conv3d_wgrad_splits(int A, int B, int Dg, int Hg, int Wg) {
-  if (!sizes_ok(A, (long long)Dg * Hg * Wg) || B < 1 || Hg < 1 || Wg < 1)
+// The number of box runs (rows of the partial buffer) of a wgrad with A
+// gradient channels, B input channels, a Dg x Hg x Wg gradient grid and
+// the given stride; 0 for sizes it does not take.
+extern "C" int conv3d_wgrad_splits(int A, int B, int Dg, int Hg, int Wg,
+                                   int stride) {
+  if (!sizes_ok(A, (long long)Dg * Hg * Wg) || B < 1 || Dg < 1 || Hg < 1 ||
+      Wg < 1 || (stride != 1 && stride != 2) ||
+      (long long)A * B * 27 >= (1LL << 31))
     return 0;
-  int n_splits, per_split;
-  wgrad_plan(A, B, Dg, Hg, Wg, &n_splits, &per_split);
-  return n_splits;
+  const WgPlan p = wgrad_plan(A, B, Dg, Hg, Wg, stride);
+  return (long long)p.n_runs * A * B * 27 < (1LL << 31) ? p.n_runs : 0;
 }
 
 // dw (A, B, 3, 3, 3) = sum_o g (A, Dg, Hg, Wg)[a, o] x (B, Dx, Hx, Wx)[b,
-// stride o + k - 1]; partial: (conv3d_wgrad_splits(A, B, Dg, Hg, Wg), A,
-// B * 27)
+// stride o + k - 1]; partial: (conv3d_wgrad_splits(A, B, Dg, Hg, Wg,
+// stride), A, B * 27)
 extern "C" int conv3d_wgrad(const void* g, const void* x, void* partial,
                             void* dw, int A, int B, int Dg, int Hg, int Wg,
                             int Dx, int Hx, int Wx, int stride, int n_splits,
                             void* stream) {
   if ((stride != 1 && stride != 2) || !sizes_ok(A, (long long)Dg * Hg * Wg) ||
-      !sizes_ok(B, (long long)Dx * Hx * Wx) ||
-      conv3d_wgrad_splits(A, B, Dg, Hg, Wg) != n_splits)
+      !sizes_ok(B, (long long)Dx * Hx * Wx) || n_splits < 1 ||
+      conv3d_wgrad_splits(A, B, Dg, Hg, Wg, stride) != n_splits)
     return (int)cudaErrorInvalidValue;
-  int splits, per_split;
-  wgrad_plan(A, B, Dg, Hg, Wg, &splits, &per_split);
-  const int mt = wgrad_mt(A), rk = THREADS * 4 / mt, N = B * 27;
-  const dim3 grid((B * 9 + rk - 1) / rk, (A + mt - 1) / mt, splits);
+  const WgPlan p = wgrad_plan(A, B, Dg, Hg, Wg, stride);
   cudaStream_t st = (cudaStream_t)stream;
   auto gp = (const float*)g;
   auto xp = (const float*)x;
   auto pp = (float*)partial;
-#define K10_WGRAD(S_, MT_)                                                   \
-  conv3d_wgrad_kernel<S_, MT_><<<grid, THREADS, 0, st>>>(                   \
-      gp, xp, pp, A, B, Dg, Hg, Wg, Dx, Hx, Wx, per_split)
-  if (stride == 1) {
-    switch (mt) {
-      case 8: K10_WGRAD(1, 8); break;
-      case 16: K10_WGRAD(1, 16); break;
-      case 32: K10_WGRAD(1, 32); break;
-      default: K10_WGRAD(1, 64);
-    }
-  } else {
-    switch (mt) {
-      case 8: K10_WGRAD(2, 8); break;
-      case 16: K10_WGRAD(2, 16); break;
-      case 32: K10_WGRAD(2, 32); break;
-      default: K10_WGRAD(2, 64);
-    }
-  }
-#undef K10_WGRAD
-  if (int rc = (int)cudaGetLastError()) return rc;
-  const int n = A * N;
+  const int rc = stride == 1
+                     ? launch_wgrad<1>(p, st, gp, xp, pp, A, B, Dg, Hg, Wg,
+                                       Dx, Hx, Wx)
+                     : launch_wgrad<2>(p, st, gp, xp, pp, A, B, Dg, Hg, Wg,
+                                       Dx, Hx, Wx);
+  if (rc) return rc;
+  const int n = A * B * 27;
   wgrad_reduce_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      pp, (float*)dw, n, splits);
+      pp, (float*)dw, n, p.n_runs);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,9 @@ the JAX custom VJPs, on three operations:
                                  = its output's cotangent)
 
 For CUDA tensors each operation launches its kernel in csrc/conv3d.cu (f32
-only) and counts the launch in `launches`; for CPU tensors it runs its
+only; stride 1 and every weight gradient on the tensor cores in 3xTF32,
+float32-accurate) and counts the launch in `launches`; for CPU tensors it
+runs its
 plain twin, 27-tap sums of `einsum` over shifted (strided) slices that call
 no convolution library; any other device raises. The Functions resolve the
 operations through this module's globals, so a caller can put the twins in
@@ -46,6 +48,49 @@ from .._build import check, library, stream_of
 # kernel launches by kernel: conv3d_fwd at stride 1 and 2, conv3d_up,
 # conv3d_wgrad (which runs its partial-sum and reduction kernels together)
 launches = {"s1": 0, "s2": 0, "up": 0, "wgrad": 0}
+
+
+# input channels per chunk of the tensor-core kernels' K (forward) and M
+# (wgrad) order: (chunk, tap, channel in the chunk); csrc/conv3d.cu `CC`
+CC = 8
+
+
+def k_steps(cin):
+    """8-deep k-steps of the stride-1 GEMM's K over `cin` channels: 27 a
+    full chunk, the last, partial chunk's 27 nc taps rounded up to 8."""
+    return 27 * (cin // CC) + (27 * (cin % CC) + 7) // 8
+
+
+def k_order(cin):
+    """(channel, tap) of each k of the stride-1 GEMM's K, (-1, -1) for the
+    padding (conv3d.cu `conv3d_pack_kernel`)."""
+    order = []
+    for c0 in range(0, cin, CC):
+        nc = min(CC, cin - c0)
+        order += [(c0 + c, tap) for tap in range(27) for c in range(nc)]
+    return order + [(-1, -1)] * (8 * k_steps(cin) - len(order))
+
+
+def packed_floats(cin, cout, stride):
+    """Floats of the packed weights `conv3d_fwd` takes (0 at stride 2)."""
+    return 0 if stride == 2 else k_steps(cin) * -(-cout // 8) * 128
+
+
+def pack_weights_tc(w):
+    """Plain twin of conv3d_pack_kernel: w (Cout, Cin, 3, 3, 3) -> the
+    stride-1 GEMM's B = W^T in the k_order, zero-padded to whole k-steps
+    and n-tiles of 8, as (k-step, n-tile, lane 4 g + t, {hi(b0), hi(b1),
+    lo(b0), lo(b1)}) with b0 = B[8 ks + t, 8 nb + g], b1 four rows down;
+    hi and lo rounded to TF32 (`render_fused.split_tf32`). Flat."""
+    from .render_fused import fragment_order, split_tf32
+    cout, cin = w.shape[:2]
+    idx = torch.tensor([c * 27 + tap if c >= 0 else cin * 27
+                        for c, tap in k_order(cin)])
+    wf = torch.cat([w.reshape(cout, cin * 27), w.new_zeros(cout, 1)], 1)
+    b = w.new_zeros(len(idx), 8 * -(-cout // 8))
+    b[:, :cout] = wf[:, idx].t()
+    hi, lo = (fragment_order(m) for m in split_tf32(b))
+    return torch.cat([hi, lo], -1).reshape(-1)
 
 
 def flip_swap(w):
@@ -119,8 +164,6 @@ def conv3d_wgrad_plain(g, x, stride):
 
 def _check(name, x, w, w_layout):
     """Shapes, dtype, device and contiguity the kernels take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: {x.device} is not a CUDA device")
     if x.dim() != 5 or x.shape[0] != 1 or w.dim() != 5 or \
             tuple(w.shape[2:]) != (3, 3, 3):
         raise ValueError(f"{name}: needs x (1, C, D, H, W) and a 3x3x3 "
@@ -135,17 +178,35 @@ def _check(name, x, w, w_layout):
                              f"{x.device}, got {t.dtype} on {t.device}")
 
 
-def conv3d_fwd_kernel(x, w, stride):
+def _on_card(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: {x.device} is not a CUDA device")
+
+
+def conv3d_fwd_kernel(x, w, stride, packed=None):
     """conv3d_fwd on the card: x (1, Cin, D, H, W), w (Cout, Cin, 3, 3,
-    3)."""
+    3). At stride 1 the call first splits w into `packed` (scratch of
+    `packed_floats` floats, allocated when not given; it then holds
+    `pack_weights_tc(w)`)."""
     _check("conv3d_fwd kernel", x, w, 1)
     if stride not in (1, 2):
         raise ValueError(f"conv3d_fwd kernel: stride {stride}")
+    n_packed = packed_floats(x.shape[1], w.shape[0], stride)
+    if packed is None:
+        packed = torch.empty(n_packed, device=x.device)
+    elif packed.shape != (n_packed,) or packed.dtype != torch.float32 or \
+            packed.device != x.device or not packed.is_contiguous():
+        raise ValueError(f"conv3d_fwd kernel: packed must be contiguous "
+                         f"float32 ({n_packed},) on {x.device}, got "
+                         f"{packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+    _on_card("conv3d_fwd kernel", x)
     size = [out_size(s, stride) for s in x.shape[2:]]
     y = torch.empty((1, w.shape[0], *size), device=x.device)
-    rc = library().conv3d_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                              x.shape[1], w.shape[0], *x.shape[2:], *size,
-                              stride, stream_of(x))
+    rc = library().conv3d_fwd(x.data_ptr(), w.data_ptr(), packed.data_ptr(),
+                              y.data_ptr(), x.shape[1], w.shape[0],
+                              *x.shape[2:], *size, stride, n_packed,
+                              stream_of(x))
     check(rc, "conv3d_fwd")
     launches[f"s{stride}"] += 1
     return y
@@ -155,6 +216,7 @@ def conv3d_up_kernel(x, w, size):
     """conv3d_up_op on the card: x (1, Cin, D, H, W), w (Cin, Cout, 3, 3,
     3) -> (1, Cout, *size), each extent at most twice x's."""
     _check("conv3d_up kernel", x, w, 0)
+    _on_card("conv3d_up kernel", x)
     size = [int(s) for s in size]
     if any(not 0 < s <= 2 * n for s, n in zip(size, x.shape[2:])):
         raise ValueError(f"conv3d_up kernel: output {size} for input "
@@ -170,11 +232,8 @@ def conv3d_up_kernel(x, w, size):
 
 def conv3d_wgrad_kernel(g, x, stride):
     """conv3d_wgrad on the card: g (1, A, Dg, Hg, Wg), x (1, B, Dx, Hx, Wx)
-    -> (A, B, 3, 3, 3), deterministic (partial sums per voxel chunk, added
-    in order)."""
-    if g.device.type != "cuda":
-        raise ValueError(f"conv3d_wgrad kernel: {g.device} is not a CUDA "
-                         f"device")
+    -> (A, B, 3, 3, 3), deterministic (partial sums per fixed run of
+    voxel boxes, added in order)."""
     for name, t in (("g", g), ("x", x)):
         if t.dim() != 5 or t.shape[0] != 1 or t.dtype != torch.float32 or \
                 t.device != g.device or not t.is_contiguous():
@@ -187,9 +246,10 @@ def conv3d_wgrad_kernel(g, x, stride):
                                                      x.shape[2:])):
         raise ValueError(f"conv3d_wgrad kernel: g {tuple(g.shape)} does not "
                          f"fit x {tuple(x.shape)} at stride {stride}")
+    _on_card("conv3d_wgrad kernel", g)
     A, B = g.shape[1], x.shape[1]
     lib = library()
-    n_splits = lib.conv3d_wgrad_splits(A, B, *g.shape[2:])
+    n_splits = lib.conv3d_wgrad_splits(A, B, *g.shape[2:], stride)
     if n_splits < 1:
         raise ValueError(f"conv3d_wgrad kernel: sizes {tuple(g.shape)} "
                          f"exceed int32")
