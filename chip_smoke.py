@@ -61,7 +61,9 @@ the render's gradient in its source images (K4's backward).
      128 planes, depth loss: (a) K2 (the sweep backward) against its plain
      twin on the cotangent that reaches the sweep in the trainer's own
      graph, read in place in the layout it arrives in (K3'), and on the
-     same cotangent in channels_last_3d; (b) one step's MLP, CostRegNet
+     same cotangent in channels_last_3d, with event and device times of
+     both, the share of its taps that fall outside its shared-memory
+     windows, and K1's device time on the same sources; (b) one step's MLP, CostRegNet
      and FeatureNet gradients on the kernels, on the twins and on the
      twins in float64, from one state and draws; (c) 12 steps of `fit`
      (launch counters reset just before), timed over the last 10:
@@ -74,8 +76,8 @@ the render's gradient in its source images (K4's backward).
      (a) each K10 kernel (conv3d_fwd at stride 1 and 2, conv3d_up,
      conv3d_wgrad) against its plain twin on the inputs one step gives it,
      layer by layer in each direction (forward, dgrad, wgrad), with
-     CUDA-event times of the kernel, the twin and cuDNN's call (and device
-     times of kernel and cuDNN for each stride-2 call); (b) one
+     CUDA-event times of the kernel, the twin and cuDNN's call, and the
+     device times of kernel and cuDNN for every call; (b) one
      step's gradients on K10 against a float64 run of the twins; (c) 12
      steps of `fit` (launch counters reset just before), timed over the
      last 10, next to phase 7's; (d) `Evaluator(costreg_impl="dband")
@@ -1182,8 +1184,9 @@ def generalizable_system(dev, mlp, mvsnet, extra=""):
 
 
 def generalizable_phase(dev, mlp, mvsnet, failures):
-    """Phase 7; returns the K2 entry of the kernels line and
-    generalizable_train_step_ms."""
+    """Phase 7; returns the K2 entry of the kernels line,
+    generalizable_train_step_ms and K1's device ms on the path's
+    sources."""
     import torch
     from mvsnerf_tpu_torch.ops import homography
     from mvsnerf_tpu_torch.ops import mlp_train as k7
@@ -1228,10 +1231,17 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
     path_layout = layout(g)
     other = g.contiguous(memory_format=torch.channels_last_3d) \
         if path_layout == "NCDHW" else g.contiguous()
-    gk = k12.sweep_cost_volume_bwd_kernel(g, *k2)
+    # the feature taps K2 adds into its shared-memory windows and those it
+    # adds in device memory instead (a cut window, a corner behind a source
+    # camera): the window rule's share at this geometry
+    taps = torch.zeros(2, dtype=torch.int64, device=dev)
+    gk = k12.sweep_cost_volume_bwd_kernel(g, *k2, taps=taps)
+    n_win, n_out = taps.tolist()
     rerun = max_err(k12.sweep_cost_volume_bwd_kernel(g, *k2), gk)
     other_err = max_err(k12.sweep_cost_volume_bwd_kernel(other, *k2), gp)
     other_ms = cuda_ms(lambda: k12.sweep_cost_volume_bwd_kernel(other, *k2))
+    other_device = device_total(
+        lambda: k12.sweep_cost_volume_bwd_kernel(other, *k2))
     s_p = srcs.clone().requires_grad_()
     entry = dict(
         name="K2 sweep_cost_volume (bwd)", route="cuda",
@@ -1242,16 +1252,25 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
         plain_ms=cuda_ms(grad_only(
             lambda: k12.sweep_cost_volume_plain(s_p, *k2[1:]), s_p, g)),
         library_ms=None,
+        device_ms=device_total(
+            lambda: k12.sweep_cost_volume_bwd_kernel(g, *k2)),
         **bound(nbytes(g, *k2[:3], gk),
                 sweep_flops(3, 32, g[0, 0].numel(), backward=True)))
+    # K1 on the generalizable path's own inputs, on the device (after
+    # phase 6, so that no profile precedes the fine-tune step's timing)
+    k1_device = device_total(lambda: k12.sweep_cost_volume_kernel(*k2))
     view_max = [float(gk[v].abs().max()) for v in range(3)]
     print(f"   K2: cotangent {tuple(g.shape)} reaches the sweep in "
           f"{path_layout}, read in place; max|twin| {ref_max:.3e}, per-view "
           f"max |d srcs| {[f'{m:.3e}' for m in view_max]}; kernel "
           f"run-to-run max diff {rerun:.3e}")
+    print(f"   K2 taps: {n_win} into the blocks' windows, {n_out} outside "
+          f"them ({n_out / max(1, n_win + n_out):.4%})")
     print(f"   K2 on the same cotangent in {layout(other)}: max_abs_err "
           f"{other_err:.3e} (tol {entry['tol']:.1e}), kernel {other_ms:.3f} "
-          f"ms")
+          f"ms, device (torch.profiler) {other_device:.4f} ms")
+    print(f"   K1 on the same sources, device (torch.profiler): "
+          f"{k1_device:.4f} ms")
     report(7, [entry], failures)
     check(other_err <= entry["tol"],
           f"K2 disagrees with its twin on a {layout(other)} cotangent",
@@ -1374,7 +1393,7 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
     # and the operations that copied a cost-volume-sized tensor (none: the
     # U-Net reads K1's output, and K2 its cotangent, in place)
     profile_steps(7, system, sample, gen, failures)
-    return [entry], step_ms
+    return [entry], step_ms, k1_device
 
 
 def k10_taps(n_out, n_in, stride, up=False):
@@ -1532,17 +1551,14 @@ def k10_kernel_entries(system, batch, draws, failures):
             times = [cuda_ms(lambda: kernel_of[op](*args)),
                      cuda_ms(lambda: plain_of[op](*args)),
                      cuda_ms(library)]
-            dev = ""
-            # every call but the up kernel's is also timed on the device
-            if key != "up":
-                d = (device_total(lambda: kernel_of[op](*args)),
-                     device_total(library))
-                s = sums[key]
-                s["device_ms"] = s.get("device_ms", 0.0) + d[0]
-                s["device_library_ms"] = \
-                    s.get("device_library_ms", 0.0) + d[1]
-                dev = (f"; device (torch.profiler) kernel {d[0]:.4f} ms, "
-                       f"cuDNN {d[1]:.4f} ms")
+            # every call is also timed on the device
+            d = (device_total(lambda: kernel_of[op](*args)),
+                 device_total(library))
+            s = sums[key]
+            s["device_ms"] = s.get("device_ms", 0.0) + d[0]
+            s["device_library_ms"] = s.get("device_library_ms", 0.0) + d[1]
+            dev = (f"; device (torch.profiler) kernel {d[0]:.4f} ms, "
+                   f"cuDNN {d[1]:.4f} ms")
             if "bound_f32_ms" in b:
                 sums[key]["bound_f32_ms"] = \
                     sums[key].get("bound_f32_ms", 0.0) + b["bound_f32_ms"]
@@ -2558,7 +2574,10 @@ def main():
 
     # ---- 7. generalizable training
     torch.cuda.empty_cache()
-    entries, cudnn_step_ms = generalizable_phase(dev, mlp, mvsnet, failures)
+    entries, cudnn_step_ms, k1_device = generalizable_phase(dev, mlp, mvsnet,
+                                                           failures)
+    next(k for k in kernels if k["name"] == "K1 sweep_cost_volume")[
+        "device_ms"] = k1_device
     kernels += entries
     note_k4_bwd(7)
 

@@ -39,9 +39,9 @@ SIGNATURES = {
     # srcs, proj, depths, out, V, h, w, C, D, pad, stream
     "sweep_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g and its (channel, plane, row, column) strides, srcs, proj, depths,
-    # gsrc, V, h, w, C, D, pad, stream
+    # gsrc, V, h, w, C, D, pad, taps (or null), stream
     "sweep_cost_volume_bwd": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _P],
+                              _I, _I, _I, _P, _P],
     # pts, w2cs, intrinsics, imgs, out, M, V, H, W, stream
     "color_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, pts, w2cs, intrinsics, gimgs, M, V, H, W, stream

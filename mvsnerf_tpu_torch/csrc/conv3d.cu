@@ -7,7 +7,7 @@
 //   conv3d_s2_dband (:337, pallas_call :365)   -> conv3d_s2_pair_kernel
 //                                                 (conv3d_fwd_kernel<2>
 //                                                 where W % 4 != 0)
-//   conv3d_up_dband (:480, pallas_call :513)   -> conv3d_up_kernel
+//   conv3d_up_dband (:480, pallas_call :513)   -> conv3d_up_cell_kernel
 //   _s1_wgrad_dband (:597, pallas_call :612)   -> conv3d_wgrad_tc_kernel<1>
 //   _s2_wgrad_dband (:707, pallas_call :722)   -> conv3d_wgrad_tc_kernel<2>
 //                                                 + wgrad_reduce_kernel
@@ -100,10 +100,16 @@
 // broadcast float4s. With W % 4 == 0 (every DTU layer) a thread takes a
 // pair of W outputs instead: one float4 and a shuffle feed both
 // (conv3d_s2_pair_kernel), and the blocks are sized to give every SM the
-// same load. conv3d_up: gather form, one thread per pair of W outputs (2m,
-// 2m+1), which share their input taps; only taps of matching parity are
-// visited, so no atomics. They are bound by f32 FMA issue; PERF.md has the
-// measured times per layer.
+// same load. conv3d_up_cell_kernel, the transposed convolution (the up
+// layers' forward and the stride-2 layers' dgrad), in gather form: one
+// thread per cell of 2 x 2 output rows x four W outputs 4q .. 4q + 3 x 4
+// channels, whose 9 (row, kd, kh) taps share the inputs 2q .. 2q + 2 of 4
+// input rows (a float2 and a shuffle each) and feed 8 multiply-adds per
+// weight float4; only taps of matching parity exist, so no atomics, and
+// every thread does the same work. Every width: the float2 where Wi is
+// even (the DTU layers' 26, 52 and 104), two scalar loads where it is odd.
+// They are bound by f32 FMA issue; PERF.md has the measured times per
+// layer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +126,7 @@ constexpr int THREADS = 256;
 constexpr int WCHUNK = 256;  // COT x input channels per weight chunk
 constexpr int SMS_FALLBACK = 132;
 constexpr int PAIR_MAX_THREADS = 640;  // the paired s2 kernel's largest block
+constexpr int UP_MAX_THREADS = 512;    // the transposed kernel's largest block
 // the tensor-core kernels: input channels a staged chunk, and the W extent
 // of a tile (two 16-voxel m-tiles, four 8-voxel k-steps)
 constexpr int CC = 8;
@@ -335,73 +342,134 @@ conv3d_s2_pair_kernel(const float* __restrict__ x,
 
 // Transposed stride-2 convolution, pad 1 (torch ConvTranspose3d with
 // output_padding 1 when Do = 2 Di): y[co, o] = sum over ci, k with
-// o = 2 i - 1 + k of w[ci, co, k] x[ci, i]. One thread per output pair
-// (.., 2m) and (.., 2m + 1): the even output takes kw = 1 at i = m, the
-// odd one kw = 0 at i = m + 1 and kw = 2 at i = m.
-template <int COT>
-__global__ void __launch_bounds__(THREADS)
-conv3d_up_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ y, int Cin, int Cout, int Di, int Hi,
-                 int Wi, int Do, int Ho, int Wo) {
-  constexpr int CIC = WCHUNK / COT;
+// o = 2 i - 1 + k of w[ci, co, k] x[ci, i]. Along each axis an even output
+// 2 m takes tap 1 at i = m, an odd one 2 m + 1 tap 0 at i = m + 1 and tap 2
+// at i = m. Each thread owns a cell of outputs: the 2 x 2 (od, oh) rows
+// 2 md + {0, 1}, 2 mh + {0, 1} (one of each parity class, so every thread
+// does the same work and a warp never diverges on parity), the four W
+// outputs 4 q .. 4 q + 3 of each, and UP_COT channels: 64 sums. Per input
+// channel the cell reads the 2 x 2 input rows (md, mh) .. (md + 1, mh + 1)
+// at inputs 2 q, 2 q + 1 (one float2 where the rows start on 8 bytes, Wi
+// even) and 2 q + 2 (the right neighbour lane's first, by a shuffle; lane
+// 31 loads it, a row's last quad takes the zero past its end), and its 9
+// (row, kd, kh) taps each feed the W outputs as
+//   y[4q]     = w1 x[2q]             y[4q + 1] = w0 x[2q + 1] + w2 x[2q]
+//   y[4q + 2] = w1 x[2q + 1]         y[4q + 3] = w0 x[2q + 2] + w2 x[2q + 1]
+// so each staged weight float4 feeds 8 multiply-adds. Rows outside the
+// input read zeros rather than branching, so every lane reaches the
+// shuffles. Any block size up to UP_MAX_THREADS (a multiple of 32):
+// up_cell_plan sizes them so that every SM gets the same number of cells.
+constexpr int UP_COT = 4;
+
+__global__ void __launch_bounds__(UP_MAX_THREADS)
+conv3d_up_cell_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w, float* __restrict__ y,
+                      int Cin, int Cout, int Di, int Hi, int Wi, int Do,
+                      int Ho, int Wo, int vec2, int vec4) {
+  constexpr int COT = UP_COT, CIC = WCHUNK / COT;
   __shared__ __align__(16) float sw[CIC * 27 * COT];
-  const int Wp = (Wo + 1) / 2;
-  const int n_pairs = Do * Ho * Wp;
-  const int v = blockIdx.x * THREADS + threadIdx.x;
+  const int nmd = (Do + 1) / 2, nmh = (Ho + 1) / 2, nq = (Wi + 1) / 2;
+  const int nt = blockDim.x;
+  const long long n_cells = (long long)nmd * nmh * nq;
+  const long long v = (long long)blockIdx.x * nt + threadIdx.x;
   const int co0 = blockIdx.y * COT;
-  const bool live = v < n_pairs;
-  int od = 0, oh = 0, m = 0;
+  const int lane = threadIdx.x & 31;
+  const bool live = v < n_cells;
+  int md = 0, mh = 0, q = 0;
   if (live) {
-    m = v % Wp;
-    const int t = v / Wp;
-    oh = t % Ho;
-    od = t / Ho;
+    q = (int)(v % nq);
+    const long long t = v / nq;
+    mh = (int)(t % nmh);
+    md = (int)(t / nmh);
   }
-  const bool has0 = m < Wi, has1 = m + 1 < Wi;
+  const bool last = q + 1 >= nq;  // x[2q + 2] lies past the row's end
   const long long plane = (long long)Di * Hi * Wi;
-  float ae[COT], ao[COT];
+  // input row r = (md + (r >> 1), mh + (r & 1))
+  long long roff[4];
+  bool rok[4];
 #pragma unroll
-  for (int j = 0; j < COT; ++j) ae[j] = ao[j] = 0.f;
+  for (int r = 0; r < 4; ++r) {
+    const int id = md + (r >> 1), ih = mh + (r & 1);
+    rok[r] = live && id < Di && ih < Hi;
+    roff[r] = ((long long)id * Hi + ih) * Wi;
+  }
+  // a[(ed * 2 + eh) * 4 + k][j]: output row (2 md + ed, 2 mh + eh), W
+  // output 4 q + k, channel co0 + j
+  float a[16][COT];
+#pragma unroll
+  for (int o = 0; o < 16; ++o)
+#pragma unroll
+    for (int j = 0; j < COT; ++j) a[o][j] = 0.f;
   for (int c0 = 0; c0 < Cin; c0 += CIC) {
     __syncthreads();
-    stage_weights<COT>(sw, w, Cin, Cout, c0, co0, true);
+    stage_weights<COT>(sw, w, Cin, Cout, c0, co0, true, nt);
     __syncthreads();
-    if (!live) continue;
     const int nc = min(CIC, Cin - c0);
     for (int cl = 0; cl < nc; ++cl) {
       const float* xc = x + (c0 + cl) * plane;
       const float* swc = sw + cl * 27 * COT;
+      float x0[4], x1[4], x2[4];
 #pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
-        if ((od + 1 - kd) & 1) continue;
-        const int id = (od + 1 - kd) >> 1;
-        if (id < 0 || id >= Di) continue;
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-          if ((oh + 1 - kh) & 1) continue;
-          const int ih = (oh + 1 - kh) >> 1;
-          if (ih < 0 || ih >= Hi) continue;
-          const float* row = xc + ((long long)id * Hi + ih) * Wi;
-          const float* wr = swc + (kd * 3 + kh) * 3 * COT;
-          if (has0) {
-            const float x0 = __ldg(row + m);
-            fma_row<COT>(ae, wr + COT, x0);
-            fma_row<COT>(ao, wr + 2 * COT, x0);
+      for (int r = 0; r < 4; ++r) {
+        const float* row = xc + roff[r];
+        x0[r] = x1[r] = x2[r] = 0.f;
+        if (rok[r]) {
+          if (vec2) {
+            const float2 p = __ldg(reinterpret_cast<const float2*>(row) + q);
+            x0[r] = p.x;
+            x1[r] = p.y;
+          } else {
+            x0[r] = __ldg(row + 2 * q);
+            if (2 * q + 1 < Wi) x1[r] = __ldg(row + 2 * q + 1);
           }
-          if (has1) fma_row<COT>(ao, wr, __ldg(row + m + 1));
+          if (!last && lane == 31) x2[r] = __ldg(row + 2 * q + 2);
         }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float right = __shfl_down_sync(0xffffffffu, x0[r], 1);
+        if (last)
+          x2[r] = 0.f;
+        else if (lane != 31)
+          x2[r] = right;
+      }
+      // the 9 taps: output row parity e, input row offset m, kernel tap k
+      // along d and h (even: k 1 at m 0; odd: k 0 at m 1, k 2 at m 0)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int td = t / 3, th = t % 3;  // 0: even, 1: odd k 0, 2: odd k 2
+        const int ed = td > 0, eh = th > 0;
+        const int kd = td == 0 ? 1 : td == 1 ? 0 : 2;
+        const int kh = th == 0 ? 1 : th == 1 ? 0 : 2;
+        const int r = (td == 1) * 2 + (th == 1);
+        const float* wr = swc + (kd * 3 + kh) * 3 * COT;
+        const int o = (ed * 2 + eh) * 4;
+        fma_pair<COT>(a[o], a[o + 2], wr + COT, x0[r], x1[r]);      // kw 1
+        fma_pair<COT>(a[o + 1], a[o + 3], wr, x1[r], x2[r]);        // kw 0
+        fma_pair<COT>(a[o + 1], a[o + 3], wr + 2 * COT, x0[r], x1[r]);  // 2
       }
     }
   }
   if (!live) return;
   const long long n_out = (long long)Do * Ho * Wo;
-  const long long o = ((long long)od * Ho + oh) * Wo + 2 * m;
-  const bool odd_ok = 2 * m + 1 < Wo;
 #pragma unroll
-  for (int j = 0; j < COT; ++j) {
-    if (co0 + j >= Cout) break;
-    y[(co0 + j) * n_out + o] = ae[j];
-    if (odd_ok) y[(co0 + j) * n_out + o + 1] = ao[j];
+  for (int e = 0; e < 4; ++e) {
+    const int od = 2 * md + (e >> 1), oh = 2 * mh + (e & 1);
+    if (od >= Do || oh >= Ho) continue;
+    const long long o = ((long long)od * Ho + oh) * Wo + 4 * q;
+#pragma unroll
+    for (int j = 0; j < COT; ++j) {
+      if (co0 + j >= Cout) break;
+      float* yo = y + (co0 + j) * n_out + o;
+      if (vec4 && 4 * q + 3 < Wo) {
+        *reinterpret_cast<float4*>(yo) = make_float4(
+            a[4 * e][j], a[4 * e + 1][j], a[4 * e + 2][j], a[4 * e + 3][j]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * q + k < Wo) yo[k] = a[4 * e + k][j];
+      }
+    }
   }
 }
 
@@ -910,6 +978,15 @@ void s2_pair_plan(int cout, long long n_pairs, int* cot, int* nt) {
   *nt = per_sm <= PAIR_MAX_THREADS ? (int)((per_sm + 31) / 32 * 32) : 256;
 }
 
+// The transposed kernel's blocks: where the (cell, channel tile) units
+// fit one block a SM, blocks of that many threads (rounded up to a warp),
+// so that every SM carries the same load; else UP_MAX_THREADS / 2.
+int up_cell_plan(long long units) {
+  const long long per_sm = (units + sm_count() - 1) / sm_count();
+  return per_sm <= UP_MAX_THREADS ? (int)((per_sm + 31) / 32 * 32)
+                                  : UP_MAX_THREADS / 2;
+}
+
 // The stride-1 kernel's plan: NT n-tiles a block (n_nt rounded up to 1, 2,
 // 4 or 6, and 4 a block past 6, so that a thread's accumulators and
 // fragments fit the 128 registers of two blocks a SM; 4 halved while the
@@ -1132,27 +1209,18 @@ extern "C" int conv3d_up(const void* x, const void* w, void* y, int Cin,
   if (!sizes_ok(Cin, (long long)Di * Hi * Wi) || !sizes_ok(Cout, n_out) ||
       Do > 2 * Di || Ho > 2 * Hi || Wo > 2 * Wi)
     return (int)cudaErrorInvalidValue;
-  const long long n_blocks =
-      ((long long)Do * Ho * ((Wo + 1) / 2) + THREADS - 1) / THREADS;
-  const int cot = pick_cot(Cout, n_blocks);
-  const dim3 grid((unsigned)n_blocks, (Cout + cot - 1) / cot);
-  cudaStream_t st = (cudaStream_t)stream;
-  auto xp = (const float*)x;
-  auto wp = (const float*)w;
-  auto yp = (float*)y;
-  switch (cot) {
-    case 8:
-      conv3d_up_kernel<8><<<grid, THREADS, 0, st>>>(xp, wp, yp, Cin, Cout, Di,
-                                                    Hi, Wi, Do, Ho, Wo);
-      break;
-    case 16:
-      conv3d_up_kernel<16><<<grid, THREADS, 0, st>>>(xp, wp, yp, Cin, Cout, Di,
-                                                     Hi, Wi, Do, Ho, Wo);
-      break;
-    default:
-      conv3d_up_kernel<32><<<grid, THREADS, 0, st>>>(xp, wp, yp, Cin, Cout, Di,
-                                                     Hi, Wi, Do, Ho, Wo);
-  }
+  const long long cells =
+      (long long)((Do + 1) / 2) * ((Ho + 1) / 2) * ((Wi + 1) / 2);
+  const int tiles = (Cout + UP_COT - 1) / UP_COT;
+  const int nt = up_cell_plan(cells * tiles);
+  const long long blocks = (cells + nt - 1) / nt;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int vec2 = Wi % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const int vec4 = Wo % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  conv3d_up_cell_kernel<<<dim3((unsigned)blocks, tiles), nt, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (float*)y, Cin, Cout, Di, Hi, Wi, Do,
+      Ho, Wo, vec2, vec4);
   return (int)cudaGetLastError();
 }
 

@@ -19,11 +19,16 @@ K1 replaces mvsnerf_tpu/ops/pallas_sweep2.py:316 `cost_volume_xband_pallas`
 and its fallback pallas_sweep.py:504 `cost_volume_fused_pallas`; K2 their
 backward kernels (`_xb_bwd_kernel` pallas_sweep2.py:210, `_fused_bwd_kernel`
 pallas_sweep.py:432). What bounds them on the H100: the 4 B x (3V+C)
-per-voxel output write (K1) and cotangent read (K2); K2 also issues f32
-atomic adds into the source gradients.
+per-voxel output write (K1) and cotangent read (K2). K2 tiles the
+reference columns and planes, and adds each block's taps into windows of
+the source images in shared memory (`BWD_*` below mirror csrc/sweep.cu;
+`bwd_window` is its window rule), then once per pixel into device memory;
+a tap outside its window goes to device memory directly.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -101,6 +106,42 @@ def sweep_cost_volume_bwd_plain(g, srcs, proj_mats, depth_values, pad: int,
         return torch.autograd.grad(out, s, g)[0]
 
 
+# K2's tiling (csrc/sweep.cu): a block owns BWD_TX reference columns of
+# BWD_TY rows, every BWD_YSTEP-th row, over BWD_RUN planes, for BWD_CG
+# feature channels or the 3 rgb channels; a source view's window holds at
+# most BWD_WIN pixels; at most BWD_MAX_SRC source views (V <= 5: the
+# window step gives each view's 8 corner points a lane of one warp)
+BWD_TX, BWD_TY, BWD_YSTEP, BWD_RUN, BWD_CG = 32, 8, 2, 16, 8
+BWD_MAX_SRC, BWD_WIN = 4, 768
+# floats a pixel of the kernel's padded source gradient (C + 3 = 35 -> 36)
+BWD_GS = 36
+
+
+def bwd_window(ix, iy, front, h, w, cap=BWD_WIN):
+    """A block's window in one source view (csrc/sweep.cu, the kernel's
+    window step): from the grid_sample coordinates `ix`, `iy` of the block's
+    4 corner columns at the run's first and last plane and whether each lies
+    in front of the camera, the box of their taps widened by one pixel,
+    clipped to the h x w image and cut to `cap` pixels: (x0, y0, width,
+    height), width 0 when a corner is behind the camera or not finite."""
+    ix, iy = torch.as_tensor(ix), torch.as_tensor(iy)
+    ok = bool(front.all()) and bool(torch.isfinite(ix).all()) and \
+        bool(torch.isfinite(iy).all())
+    lx = float(ix.clamp(-2.0, w + 1.0).min())
+    hx = float(ix.clamp(-2.0, w + 1.0).max())
+    ly = float(iy.clamp(-2.0, h + 1.0).min())
+    hy = float(iy.clamp(-2.0, h + 1.0).max())
+    x0 = max(0, math.floor(lx) - 1)
+    y0 = max(0, math.floor(ly) - 1)
+    bw = min(w - 1, math.floor(hx) + 2) - x0 + 1
+    bh = min(h - 1, math.floor(hy) + 2) - y0 + 1
+    if not ok or bw <= 0 or bh <= 0:
+        return x0, y0, 0, 0
+    if bw * bh > cap:
+        bw, bh = (cap, 1) if bw > cap else (bw, cap // bw)
+    return x0, y0, bw, bh
+
+
 def _check_args(srcs, proj_mats, depth_values, pad, c_feat):
     V, h, w, cs = srcs.shape
     dev = srcs.device
@@ -142,12 +183,19 @@ def sweep_cost_volume_kernel(srcs, proj_mats, depth_values, pad: int,
 
 
 def sweep_cost_volume_bwd_kernel(g, srcs, proj_mats, depth_values, pad: int,
-                                 c_feat: int):
+                                 c_feat: int, taps=None):
     """K2 on the card: the (V, h, w, c_feat + 3) gradient of `srcs` for the
     (1, 3V + c_feat, D, hp, wp) cost cotangent `g`, every channel of every
-    view. K3's cotangent direction has no pass of its own: the kernel
+    view (a view of the kernel's gradient, padded to BWD_GS floats a
+    pixel). K3's cotangent direction has no pass of its own: the kernel
     reads `g` through its strides, where the U-Net's backward leaves it
-    (NCDHW, channels_last_3d, or expanded), without a copy."""
+    (NCDHW, channels_last_3d, or expanded), without a copy. `taps`, when
+    given, is a zeroed int64 CUDA tensor of 2 to which the kernel adds the
+    feature taps it added into its windows and those it added in device
+    memory instead."""
+    if srcs.shape[0] > BWD_MAX_SRC + 1:
+        raise ValueError(f"sweep backward kernel: {srcs.shape[0] - 1} source "
+                         f"views, at most {BWD_MAX_SRC}")
     _check_args(srcs, proj_mats, depth_values, pad, c_feat)
     V, h, w, cs = srcs.shape
     D = depth_values.shape[0]
@@ -157,15 +205,20 @@ def sweep_cost_volume_bwd_kernel(g, srcs, proj_mats, depth_values, pad: int,
         raise ValueError(f"sweep backward kernel: cotangent "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}, "
                          f"expected {shape} float32 on {srcs.device}")
-    g_srcs = torch.zeros((V, h, w, cs), device=srcs.device)
+    if taps is not None and (taps.shape != (2,) or
+                             taps.dtype != torch.int64 or
+                             taps.device != srcs.device):
+        raise ValueError(f"sweep backward kernel: taps must be an int64 "
+                         f"(2,) tensor on {srcs.device}")
+    g_srcs = torch.zeros((V, h, w, BWD_GS), device=srcs.device)
     srcp = proj_mats[1:].contiguous()
     rc = library().sweep_cost_volume_bwd(
         g.data_ptr(), *g.stride()[1:], srcs.data_ptr(), srcp.data_ptr(),
         depth_values.data_ptr(), g_srcs.data_ptr(), V, h, w, c_feat, D, pad,
-        stream_of(srcs))
+        None if taps is None else taps.data_ptr(), stream_of(srcs))
     check(rc, "sweep_cost_volume_bwd")
     sweep_cost_volume.bwd_launches += 1
-    return g_srcs
+    return g_srcs[..., :cs]
 
 
 class _SweepCostVolume(torch.autograd.Function):
