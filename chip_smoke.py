@@ -25,7 +25,7 @@ the render's gradient in its source images (K4's backward).
      K4 of one `F.grid_sample` of the 3 views on its grid and K4's masks
      against the twin's; for K6 its and the f32 twin's distance from a
      float64 run of the twin, and its bound at the TF32 tensor-core peak
-     for its 3 passes beside the f32 one; the device times of K4,
+     for its 3 passes beside the f32 one; the device times of K1, K4,
      `F.grid_sample` and K6, from `torch.profiler`, are taken on the same
      inputs after phase 10);
   4. slice: `Evaluator.build_volume` -> a (128, 176, 208, 8) volume, then
@@ -45,15 +45,17 @@ the render's gradient in its source images (K4's backward).
      timed over the last 30; (c) K5 (volume gather / splat) and K7 (v0 MLP
      forward / backward) against their plain twins at the step's own
      shapes, with CUDA-event and `torch.profiler` device times of kernel
-     and library call; K7 also against a float64 run of its twin at the
-     step's N and at a ragged N, its weight streams against their Python
-     packings, dW bit-identical over two calls, its saved floats a sample,
-     its forward with and without saving them, its wrapper's host time
-     and its bound in 3xTF32 beside the f32 one; (d) `torch.profiler`
-     over 3 steps: device time by
-     kernel group. No profile is taken before (b): `torch.profiler` can
-     leave CUPTI attached to the process and slow every later launch on
-     the host, and the step is host-bound;
+     and library call, and the share of the splat's corner adds merged
+     into the next sample's atomic (the kernel's count, which must be its
+     rule's, `splat_merges`); K7 also against a float64 run of its twin at
+     the step's N and at a ragged N, its weight streams against their
+     Python packings, dW bit-identical over two calls, its saved floats a
+     sample, its forward with and without saving them, its wrapper's host
+     time and its bound in 3xTF32 beside the f32 one; (d)
+     `torch.profiler` over 3 steps: device time by kernel group. No
+     profile is taken before (b): `torch.profiler` can leave CUPTI
+     attached to the process and slow every later launch on the host, and
+     the step is host-bound;
   7. generalizable training: `GeneralizableSystem` from a
      reference-format checkpoint of the same weights, on bench.py's
      generalizable batch (4 random 640x512 views of the rig, the last the
@@ -95,10 +97,11 @@ the render's gradient in its source images (K4's backward).
      launches of K4, K6, K6b and K8; (c) `Evaluator.evaluate` on an
      in-memory DTU-like dataset of 2 views with GT depth, in each mode;
      (d) `FinetuneSystem --use_color_volume`: K5 forward and backward at
-     C=20 against their twins, one step on the kernels against one on the
-     twins, 36 steps of `fit` timed over the last 30, and no MVSNet
-     parameter in Adam; (e) `render_video`: 3 frames of 640x512 through
-     `render_image` in the `tiled` mode, kept in memory;
+     C=20 against their twins (and the splat's merged share), one step on
+     the kernels against one on the twins, 36 steps of `fit` timed over
+     the last 30, and no MVSNet parameter in Adam; (e) `render_video`: 3
+     frames of 640x512 through `render_image` in the `tiled` mode, kept in
+     memory;
  10. the render's gradient in its source images, at phase 6's
      configuration with the images made leaf tensors that require grad:
      (a) K4's backward against its twin on the cotangent that reaches the
@@ -515,10 +518,12 @@ def f64_anchor(out_k, out_p, run_f64):
             "plain_err_f64": max(max_err(out_p[k], ref[k]) for k in keys)}
 
 
-def k5_entries(kernels, v, ndc, gen, suffix=""):
+def k5_entries(kernels, v, ndc, gen, failures, suffix=""):
     """K5's forward and backward against their twins (and one 3-D
     grid_sample call and its backward, on the NCDHW volume laid out
-    beforehand) on the (D, hp, wp, C) volume `v` at `ndc`."""
+    beforehand) on the (D, hp, wp, C) volume `v` at `ndc`; the share of
+    the splat's corner adds that it merged into the next sample's atomic,
+    which must be the count of its rule (`splat_merges`)."""
     import torch
     from mvsnerf_tpu_torch.ops import volume_gather as k5
     src5 = "mvsnerf_tpu_torch/csrc/volume_gather.cu"
@@ -539,8 +544,16 @@ def k5_entries(kernels, v, ndc, gen, suffix=""):
                  n5 * (30 + 8 * c5 * 2))
     g5 = torch.randn(f_p.shape, device=v.device, generator=gen)
     g5_lib = g5.reshape(-1, c5).t().reshape(1, c5, -1, 1, 1).contiguous()
-    b_k = k5.volume_splat_kernel(g5, ndc, v.shape)
+    adds = torch.zeros(2, dtype=torch.int64, device=v.device)
+    b_k = k5.volume_splat_kernel(g5, ndc, v.shape, adds=adds)
     b_p = k5.volume_splat_plain(g5, ndc, v)
+    n_add, n_merged = adds.tolist()
+    rule = k5.splat_merges(ndc, v.shape)[1]
+    print(f"   K5{suffix} splat: {n_merged} of {n_add + n_merged} corner "
+          f"adds ({n_merged / max(1, n_add + n_merged):.2%}) merged into the "
+          f"next sample's atomic, {n_add} atomics; the rule counts {rule}")
+    check((n_add, n_merged) == rule,
+          f"K5{suffix}'s splat merged other corners than its rule", failures)
     v_r = v.clone().requires_grad_()
     kernel_entry(kernels, f"K5 volume_splat{suffix} (bwd)", src5, rep5,
                  max_err(b_k, b_p), TOL_K5 * (1 + float(b_p.abs().max())),
@@ -561,6 +574,26 @@ def k4_library_inputs(pts, w2cs, intrs, imgs):
     grids = color_warp_grids(pts, w2cs, intrs, H_, W_)
     return (imgs.permute(0, 3, 1, 2).contiguous(),
             grids.reshape(V, -1, 1, 2).contiguous())
+
+
+def k1_inputs(ev, src):
+    """K1's arguments on the serving path: the (3, h, w, 35) [feat | rgb]
+    sources of `src` (images, projections, poses), the projections, the
+    128 plane depths, the pad and the feature width."""
+    import torch
+    from mvsnerf_tpu_torch.models.mvsnet import depth_plane_values
+    from mvsnerf_tpu_torch.ops.interp import interpolate_bilinear_resize
+    imgs_norm, projs, _ = src
+    dev = ev.device
+    imgs_t = torch.tensor(imgs_norm, device=dev)
+    feats = ev.mvsnet.feature(imgs_t)
+    h4, w4 = feats.shape[1:3]
+    imgs_l = torch.stack([interpolate_bilinear_resize(im, h4, w4)
+                          for im in imgs_t])
+    srcs = torch.cat([feats, imgs_l], dim=-1).contiguous()
+    nf = torch.tensor(NEAR_FAR, device=dev)
+    return (srcs, torch.tensor(projs, device=dev),
+            depth_plane_values(nf[0], nf[1], N_PLANES, device=dev), PAD, 32)
 
 
 def k6_inputs(ev, mlp, src, requests):
@@ -900,7 +933,7 @@ def finetune_phase(dev, mlp, mvsnet, failures):
     rep7 = "mvsnerf_tpu/ops/pallas_mlp.py:318"
     with torch.no_grad():
         k5_entries(kernels, system.volume.detach(),
-                   step_ndc(system, rays, gen), gen)
+                   step_ndc(system, rays, gen), gen, failures)
         x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
         m = system.mlp
         k7_entries(kernels, x, m, gen, failures)
@@ -1961,7 +1994,7 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
     k5 = []
     with torch.no_grad():
         k5_entries(k5, vol.detach(), step_ndc(system, rays, gen), gen,
-                   " C=20")
+                   failures, " C=20")
     report(9, k5, failures)
     plain_step_ms = step_parity(9, system, rays, rgbs, gen, failures)
     counters = {**k5_counters(" C=20"),
@@ -2030,8 +2063,11 @@ def image_grads(system, samples, rgbs, twins, f64=False):
 
 def device_ms(fn, reps=5):
     """Device time per call of `fn` by kernel name (torch.profiler), ms,
-    after one warm-up call. A profile that caught no device activity is
-    taken again, up to twice."""
+    after one warm-up call. The profile can lose a launch now and then (a
+    kernel that every call launches once seen 4 times in 5 calls), so a
+    name's time per call is the mean of the launches it saw times the
+    launches a call makes, `reps` calls rounded up. A profile that caught
+    no device activity is taken again, up to twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2042,14 +2078,15 @@ def device_ms(fn, reps=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        us, seen = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3 / reps
-        if by_name:
+                us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if us:
             break
-    return by_name
+    return {name: t / seen[name] * -(-seen[name] // reps) / 1e3
+            for name, t in us.items()}
 
 
 def device_total(fn, reps=5):
@@ -2348,12 +2385,11 @@ def main():
     import mvsnerf_tpu_torch
     from mvsnerf_tpu_torch import _build
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
-    from mvsnerf_tpu_torch.models.mvsnet import MVSNet, depth_plane_values
+    from mvsnerf_tpu_torch.models.mvsnet import MVSNet
     from mvsnerf_tpu_torch.models.nerf_mlp import MVSNeRF
     from mvsnerf_tpu_torch.ops.color_warp import color_warp, \
         color_warp_plain
     from mvsnerf_tpu_torch.ops.geometry import get_ndc_coordinate
-    from mvsnerf_tpu_torch.ops.interp import interpolate_bilinear_resize
     from mvsnerf_tpu_torch.ops.render_fused import render_v0, \
         render_v0_feats, render_v0_plain
     from mvsnerf_tpu_torch.ops.sampling import ray_marcher
@@ -2405,15 +2441,9 @@ def main():
     with torch.no_grad():
         volume, imgs01, nf, pose_t = ev.build_volume(imgs_norm, projs,
                                                      NEAR_FAR, pose_src)
-        imgs_t = torch.tensor(imgs_norm, device=dev)
-        feats = mvsnet.feature(imgs_t)
-        h4, w4 = feats.shape[1:3]
-        imgs_l = torch.stack([interpolate_bilinear_resize(im, h4, w4)
-                              for im in imgs_t])
-        srcs = torch.cat([feats, imgs_l], dim=-1).contiguous()
-        proj_t = torch.tensor(projs, device=dev)
-        depths = depth_plane_values(nf[0], nf[1], N_PLANES, device=dev)
-        k1 = (srcs, proj_t, depths, PAD, 32)
+        k1 = k1_inputs(ev, (imgs_norm, projs, pose_src))
+        srcs, proj_t, depths = k1[:3]
+        h4, w4 = srcs.shape[1:3]
         out_k, out_p = sweep_cost_volume(*k1), sweep_cost_volume_plain(*k1)
         require(out_k.shape == (1, 41, N_PLANES, h4 + 2 * PAD,
                                 w4 + 2 * PAD) and out_k.is_contiguous(),
@@ -2479,8 +2509,8 @@ def main():
                 *(a.double() for a in k6[:5]), mlp64))))
         print(f"   K6 inputs: acc mean {float(r_p['acc'].mean()):.4f}, "
               f"rgb std {float(r_p['rgb'].std()):.4f}")
-        del k1, k4, k6, srcs, feats, colors, colors_p, r_k, r_p, inp4, \
-            grid4, mlp64
+        del k1, k4, k6, srcs, colors, colors_p, r_k, r_p, inp4, grid4, \
+            mlp64
     report(3, kernels, failures)
     torch.cuda.empty_cache()
     # K4 backward launches by phase, from here on (phase 10 reads them)
@@ -2577,7 +2607,7 @@ def main():
     entries, cudnn_step_ms, k1_device = generalizable_phase(dev, mlp, mvsnet,
                                                            failures)
     next(k for k in kernels if k["name"] == "K1 sweep_cost_volume")[
-        "device_ms"] = k1_device
+        "device_ms_generalizable"] = k1_device
     kernels += entries
     note_k4_bwd(7)
 
@@ -2622,6 +2652,19 @@ def main():
           f"phase 10): {k6_entry['device_ms']:.4f} ms (its weight packing "
           f"included); events - device "
           f"{k6_entry['ms'] - k6_entry['device_ms']:.4f} ms")
+    # ---- K1's device time on phase 3's inputs, taken last for the same
+    # reason
+    k1_entry = next(k for k in kernels if k["name"] == "K1 sweep_cost_volume")
+    with torch.no_grad():
+        k1 = k1_inputs(ev, (imgs_norm, projs, pose_src))
+        k1_entry["device_ms"] = device_total(lambda: sweep_cost_volume(*k1))
+        k1_ms = cuda_ms(lambda: sweep_cost_volume(*k1), reps=10)
+        del k1
+    print(f"[3 kernel] K1 sweep_cost_volume on the device (torch.profiler, "
+          f"after phase 10): {k1_entry['device_ms']:.4f} ms (its sources' "
+          f"relayout included; {k1_entry['device_ms_generalizable']:.4f} ms "
+          f"on phase 7's sources); events now {k1_ms:.4f} ms, in phase 3 "
+          f"{k1_entry['ms']:.4f}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

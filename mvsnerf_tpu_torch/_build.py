@@ -36,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    # srcs, proj, depths, out, V, h, w, C, D, pad, stream
-    "sweep_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # srcs, packed (scratch), proj, depths, out, V, h, w, C, D, pad, stream
+    "sweep_cost_volume": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g and its (channel, plane, row, column) strides, srcs, proj, depths,
     # gsrc, V, h, w, C, D, pad, taps (or null), stream
     "sweep_cost_volume_bwd": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
@@ -57,8 +57,8 @@ SIGNATURES = {
     "render_v0_smem_bytes": [],
     # vol, ndc, out, n_samples, D, HP, WP, C, stream
     "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # g, ndc, gvol, n_samples, D, HP, WP, C, stream
-    "volume_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, ndc, gvol, n_samples, D, HP, WP, C, adds (or null), stream
+    "volume_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # w, streams, n_weights, stream
     "mlp_v0_pack": [_P, _P, _I, _P],
     # x, w, out, N, n_weights, scratch, its floats, save, stream

@@ -9,24 +9,41 @@
 // volume contiguous (NCDHW), the layout cuDNN runs the f32 3-D U-Net in,
 // so CostRegNet's first convolution reads it without a relayout pass.
 //
-// One thread per output voxel (d, y, x) of the padded grid. For each source
-// view the homography coordinate is computed in-register (the JAX
-// `plane_sweep_pix_coords`, homography.py:53-80), so no coordinate arrays
-// exist in memory. A direct gather needs no x/y window contract, so the
-// TPU's `xband_fits` / `sweep_fits_band_pix` checks and their lax.cond
-// fallbacks have no counterpart.
+// K1's layout (sweep_kernel). A first launch (sweep_pack_kernel) lays
+// the (V, h, w, 35) sources out quad-planar, (V, 9, h, w, 4): quad q of a
+// pixel holds its channels 4 q .. 4 q + 3, the ninth [r, g, b, 0]. So a
+// bilinear tap reads 4 channels with one 16-byte load, and a warp's
+// lanes, at neighbouring reference columns, read neighbouring 16-byte
+// pieces of one source row. A block owns SW_TX reference columns
+// of SW_TY rows (a warp a row) over a run of SW_RUN planes, for one
+// channel group (blockIdx.y): 16 feature channels, 4 quads (2 groups:
+// the variance of a channel depends on that channel alone), or the 3 rgb
+// channels (the third group, which writes the reference and warped rgb
+// and needs no mean). A thread walks its column down the run: from one
+// plane to the next a tap moves by a fraction of a pixel at DTU geometry,
+// so its source pixels are still in L1, and the sources are read from L2
+// about once per run. Each group recomputes the coordinates (~70
+// instructions a (voxel, view), beside 16 16-byte loads); at 16 channels
+// a thread fits 80 registers, 6 blocks an SM (8 channels, 5 groups: the
+// coordinates' issue costs more than the occupancy gains; 32: too few
+// warps to cover the loads). The output goes out with streaming stores
+// (st.global.cs), so the 768 MB written through L2 does not evict the
+// sources every block gathers from.
+// A direct gather needs no x/y window contract, so the TPU's `xband_fits`
+// / `sweep_fits_band_pix` checks and their lax.cond fallbacks have no
+// counterpart.
 //
 // The coordinate and variance arithmetic uses round-to-nearest intrinsics
 // with no FMA contraction, in the plain twin's operation order
 // (ops/sweep.py), so kernel and twin sample at the same coordinates: with
 // ~1e2-px coordinates and steep feature maps, one ulp of a coordinate
-// moves the variance by ~1e-4.
+// moves the variance by ~1e-4. Each channel's sums over the views run in
+// view order, var = E[x^2] - E[x]^2 in f32.
 //
 // What bounds K1 on the H100: the output write, 4 B x (3V+C) per voxel
-// (4 B x 41 x 128 x 176 x 208 by the shapes). The sources, 4 B x 35 x
-// 128 x 160 per view, stay in L2. Consecutive threads hold consecutive
-// voxels, so each of a warp's 41 channel stores covers 128 contiguous
-// bytes.
+// (4 B x 41 x 128 x 176 x 208 by the shapes, 768 MB). Each of a warp's
+// stores of a channel covers 128 contiguous bytes. Measured times, and the
+// variants tried: PERF.md.
 //
 // K2 replaces the TPU backward kernels pallas_sweep2.py:210 `_xb_bwd_kernel`
 // (via `_xb_bwd_rule` :342) and pallas_sweep.py:432 `_fused_bwd_kernel`
@@ -180,80 +197,166 @@ __device__ __forceinline__ long long tap_pixel(const SweepTap& t, int k,
   return (long long)(t.y0 + (k >> 1)) * w + t.x0 + (k & 1);
 }
 
-template <int C>
-__global__ void sweep_kernel(const float* __restrict__ srcs,
-                             const float* __restrict__ proj,
-                             const float* __restrict__ depths,
-                             float* __restrict__ out, int V, int h, int w,
-                             int D, int pad) {
-  constexpr int CS = C + 3;  // [feat(C) | rgb(3)] per source pixel
-  const int hp = h + 2 * pad, wp = w + 2 * pad;
-  const long long n = (long long)D * hp * wp;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = (int)(idx % wp);
-  const int y = (int)((idx / wp) % hp);
-  const int d = (int)(idx / ((long long)wp * hp));
-  // channel c of this voxel is o[c * n] (NCDHW)
-  float* o = out + idx;
+// K1's tiling (ops/sweep.py's SW_* constants mirror these)
+constexpr int SW_TX = 32;       // reference columns of a block (a warp a row)
+constexpr int SW_TY = 4;        // rows of a block
+constexpr int SW_RUN = 16;      // planes of a block
+constexpr int SW_CG = 16;       // feature channels of a group: 4 quads
+constexpr int SW_MIN_BLOCKS = 6;  // blocks an SM holds at once: <= 85
+                                  // registers a thread
+constexpr int SW_QUADS = 9;     // quads of a packed source pixel: 8 of
+                                // features, then [r, g, b, 0]
+constexpr int SW_THREADS = SW_TX * SW_TY;
+constexpr int SW_MAX_SMEM = 48 * 1024;  // the views' projections and T /
+                                        // depth, static launch limit
 
-  float sum[C], sq[C];
+// (V, h, w, 35) sources -> (V, SW_QUADS, h, w) float4s, one thread a
+// pixel: quad q of pixel p of view v at (v * SW_QUADS + q) * h * w + p
+__global__ void sweep_pack_kernel(const float* __restrict__ srcs,
+                                  float4* __restrict__ packed, long long hw,
+                                  long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* s = srcs + i * 35;
+  float4* o = packed + i / hw * SW_QUADS * hw + i % hw;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    o[q * hw] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2],
+                            s[4 * q + 3]);
+  o[8 * hw] = make_float4(s[32], s[33], s[34], 0.f);
+}
+
+// One block: SW_TX reference columns x SW_TY rows x SW_RUN planes
+// (blockIdx.x) for channel group blockIdx.y: features [16 y, 16 y + 16)
+// for y < 2, the rgb channels for y = 2. Dynamic shared memory: each
+// source view's projection, then its T / depth at the block's planes.
+__global__ void __launch_bounds__(SW_THREADS, SW_MIN_BLOCKS)
+    sweep_kernel(const float4* __restrict__ src4,
+                 const float* __restrict__ proj,
+                 const float* __restrict__ depths, float* __restrict__ out,
+                 int V, int h, int w, int D, int pad) {
+  constexpr int C = 32, CG = SW_CG;
+  extern __shared__ float ssm[];
+  const int NS = V - 1;
+  float* const sproj = ssm;          // [view][12]
+  float* const stz = ssm + 12 * NS;  // [view][plane][3]
+  const int hp = h + 2 * pad, wp = w + 2 * pad;
+  const int ntx = (wp + SW_TX - 1) / SW_TX;
+  const int nty = (hp + SW_TY - 1) / SW_TY;
+  const int tx0 = blockIdx.x % ntx * SW_TX;
+  const int ty0 = blockIdx.x / ntx % nty * SW_TY;
+  const int d0 = blockIdx.x / (ntx * nty) * SW_RUN;
+  const int d1 = min(D, d0 + SW_RUN);
+  for (int i = threadIdx.x; i < 12 * NS; i += SW_THREADS) sproj[i] = proj[i];
+  for (int i = threadIdx.x; i < NS * SW_RUN; i += SW_THREADS) {
+    const int s = i / SW_RUN, k = i % SW_RUN;
+    if (d0 + k < d1) {
+      const PlaneT q = plane_t(proj + 12 * s, depths[d0 + k]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) stz[3 * i + j] = q.t[j];
+    }
+  }
+  __syncthreads();
+  const int x = tx0 + threadIdx.x % SW_TX, y = ty0 + threadIdx.x / SW_TX;
+  if (x >= wp || y >= hp) return;
+  const long long hw = (long long)h * w;
+  const long long plane = (long long)hp * wp, n = D * plane;
+  // channel c of this column's voxel at plane d is o[c * n], o advancing
+  // a plane a step (NCDHW)
+  float* o = out + d0 * plane + (long long)y * wp + x;
   // the reference view is zero-padded, not warped (homography.py:170-172)
   const int rx = x - pad, ry = y - pad;
-  if (rx >= 0 && rx < w && ry >= 0 && ry < h) {
-    const float* r = srcs + ((long long)ry * w + rx) * CS;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float f = r[c];
-      sum[c] = f;
-      sq[c] = __fmul_rn(f, f);
-    }
-    o[0] = r[C];
-    o[n] = r[C + 1];
-    o[2 * n] = r[C + 2];
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) sum[c] = sq[c] = 0.f;
-    o[0] = o[n] = o[2 * n] = 0.f;
-  }
-
-  float count = 1.f;
+  const bool interior = rx >= 0 && rx < w && ry >= 0 && ry < h;
+  const long long rpix = interior ? (long long)ry * w + rx : 0;
   const float gx = (float)rx, gy = (float)ry;
-  const float depth = depths[d];
-  for (int v = 1; v < V; ++v) {
-    const float* P = proj + (v - 1) * 12;
-    const SweepTap t = sweep_tap(P, plane_t(P, depth).t, gx, gy, h, w);
-    if (t.inside) count += 1.f;
-    float val[CS];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // view s's taps at plane d
+  auto tap = [&](int s, int d) {
+    return sweep_tap(sproj + 12 * s, stz + 3 * (s * SW_RUN + d - d0), gx, gy,
+                     h, w);
+  };
+
+  if (blockIdx.y == C / CG) {  // rgb: the reference's, then each view's warp
+    const float4 r = interior ? __ldg(src4 + 8 * hw + rpix) : zero;
+    for (int d = d0; d < d1; ++d, o += plane) {
+      __stcs(o, r.x);
+      __stcs(o + n, r.y);
+      __stcs(o + 2 * n, r.z);
+      for (int s = 0; s < NS; ++s) {
+        const SweepTap t = tap(s, d);
+        float4 v = zero;
+        if (t.hit) {
+          const float4* q = src4 + ((s + 1) * SW_QUADS + 8) * hw;
 #pragma unroll
-    for (int c = 0; c < CS; ++c) val[c] = 0.f;
-    if (t.hit) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!tap_in(t, k, h, w)) continue;
-        const float* s = srcs + ((long long)v * h * w + tap_pixel(t, k, w)) *
-                                    CS;
-#pragma unroll
-        for (int c = 0; c < CS; ++c) val[c] = fmaf(s[c], t.wt[k], val[c]);
+          for (int k = 0; k < 4; ++k) {
+            if (!tap_in(t, k, h, w)) continue;
+            const float4 f = __ldg(q + tap_pixel(t, k, w));
+            v.x = fmaf(f.x, t.wt[k], v.x);
+            v.y = fmaf(f.y, t.wt[k], v.y);
+            v.z = fmaf(f.z, t.wt[k], v.z);
+          }
+        }
+        float* ov = o + 3 * (s + 1) * n;
+        __stcs(ov, v.x);
+        __stcs(ov + n, v.y);
+        __stcs(ov + 2 * n, v.z);
       }
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      sum[c] = __fadd_rn(sum[c], val[c]);
-      sq[c] = __fadd_rn(sq[c], __fmul_rn(val[c], val[c]));
-    }
-    o[3 * v * n] = val[C];
-    o[(3 * v + 1) * n] = val[C + 1];
-    o[(3 * v + 2) * n] = val[C + 2];
+    return;
   }
 
-  // var = E[x^2] - E[x]^2 over the views that see the voxel, in f32
-  const float inv = __fdiv_rn(1.f, count);
+  constexpr int QG = CG / 4;   // this group's quads: q0 .. q0 + QG - 1
+  const int q0 = QG * blockIdx.y;
+  const float4* const rq = src4 + q0 * hw + rpix;
+  float* const ovar = o + (3 * V + CG * blockIdx.y) * n;
+  for (int d = d0; d < d1; ++d) {
+    float sum[CG], sq[CG];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float mean = __fmul_rn(sum[c], inv);
-    o[(3 * V + c) * n] =
-        __fsub_rn(__fmul_rn(sq[c], inv), __fmul_rn(mean, mean));
+    for (int j = 0; j < QG; ++j) {
+      const float4 r = interior ? __ldg(rq + j * hw) : zero;
+      const float f[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sum[4 * j + c] = f[c];
+        sq[4 * j + c] = __fmul_rn(f[c], f[c]);
+      }
+    }
+    float count = 1.f;
+    for (int s = 0; s < NS; ++s) {
+      const SweepTap t = tap(s, d);
+      if (t.inside) count += 1.f;
+      const float4* q = src4 + ((s + 1) * SW_QUADS + q0) * hw;
+#pragma unroll
+      for (int j = 0; j < QG; ++j) {
+        float val[4] = {0.f, 0.f, 0.f, 0.f};
+        if (t.hit) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (!tap_in(t, k, h, w)) continue;
+            const float4 a = __ldg(q + j * hw + tap_pixel(t, k, w));
+            val[0] = fmaf(a.x, t.wt[k], val[0]);
+            val[1] = fmaf(a.y, t.wt[k], val[1]);
+            val[2] = fmaf(a.z, t.wt[k], val[2]);
+            val[3] = fmaf(a.w, t.wt[k], val[3]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          sum[i] = __fadd_rn(sum[i], val[c]);
+          sq[i] = __fadd_rn(sq[i], __fmul_rn(val[c], val[c]));
+        }
+      }
+    }
+    // var = E[x^2] - E[x]^2 over the views that see the voxel, in f32
+    const float inv = __fdiv_rn(1.f, count);
+    float* const ov = ovar + (d - d0) * plane;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) {
+      const float mean = __fmul_rn(sum[c], inv);
+      __stcs(ov + c * n,
+             __fsub_rn(__fmul_rn(sq[c], inv), __fmul_rn(mean, mean)));
+    }
   }
 }
 
@@ -692,16 +795,30 @@ int launch_bwd(dim3 grid, cudaStream_t st, const float* g, GradStrides gst,
 
 }  // namespace
 
-extern "C" int sweep_cost_volume(const void* srcs, const void* proj,
-                                 const void* depths, void* out, int V, int h,
-                                 int w, int C, int D, int pad, void* stream) {
+// packed: scratch of V x SW_QUADS x h x w float4s, which the first launch
+// fills from srcs (V, h, w, 35) and the second reads
+extern "C" int sweep_cost_volume(const void* srcs, void* packed,
+                                 const void* proj, const void* depths,
+                                 void* out, int V, int h, int w, int C, int D,
+                                 int pad, void* stream) {
   if (bad_args(V, h, w, C, D, pad)) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)D * (h + 2 * pad) * (w + 2 * pad);
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  sweep_kernel<32><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)srcs, (const float*)proj, (const float*)depths,
-      (float*)out, V, h, w, D, pad);
+  const int hp = h + 2 * pad, wp = w + 2 * pad;
+  const long long tiles = (long long)((wp + SW_TX - 1) / SW_TX) *
+                          ((hp + SW_TY - 1) / SW_TY) *
+                          ((D + SW_RUN - 1) / SW_RUN);
+  const long long smem = (long long)(V - 1) * (12 + 3 * SW_RUN) * 4;
+  if (tiles >= (1LL << 31) || smem > SW_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  const long long hw = (long long)h * w, pix = V * hw;
+  sweep_pack_kernel<<<(unsigned)((pix + 255) / 256), 256, 0, st>>>(
+      (const float*)srcs, (float4*)packed, hw, pix);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  sweep_kernel<<<dim3((unsigned)tiles, 32 / SW_CG + 1), SW_THREADS,
+                 (size_t)smem, st>>>((const float4*)packed, (const float*)proj,
+                                     (const float*)depths, (float*)out, V, h,
+                                     w, D, pad);
   return (int)cudaGetLastError();
 }
 

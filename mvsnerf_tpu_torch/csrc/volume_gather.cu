@@ -18,13 +18,24 @@
 // corner weights formed as ATen forms them. f32 throughout.
 //
 // Layout: one thread per (sample, group of 4 channels); a corner is one
-// float4 load (two threads share a 32 B voxel at C = 8). The backward adds
-// w * g into the zeroed gradient with f32 atomicAdd, so its summation
-// order varies from run to run.
+// float4 load (two threads share a 32 B voxel at C = 8).
+//
+// The backward (splat_kernel) adds w * g into the zeroed gradient, each
+// corner's 4 channels with one 16-byte atomicAdd (a single REDG.128 on
+// sm_90, not four scalar REDs), so its summation order varies from run to
+// run. A ray's samples are consecutive in `ndc` and step about one plane
+// in z each: where the sample before this one in the warp (lane - CG, the
+// same channel group) has the same x and y taps and its z tap one plane
+// below, its 4 upper corners are this sample's 4 lower ones. That lane
+// hands their weights and its cotangent over by shuffles and skips them,
+// and this lane adds both in one atomic a corner (ops/volume_gather.py
+// `splat_merges` is the rule). Each corner's add is issued once whatever
+// the merge; the merge only saves atomics.
 //
 // What bounds it on the H100: the forward reads 8 corners per sample from
 // a 150 MB volume that does not fit in L2 (random rows), the backward the
-// same corners as atomics plus the 150 MB zeroing pass of the wrapper.
+// same corners as atomics plus the 150 MB zeroing pass of the wrapper,
+// which writes the dense gradient (Adam updates the whole volume).
 
 #include <cuda_runtime.h>
 
@@ -95,29 +106,74 @@ __global__ void __launch_bounds__(THREADS)
   reinterpret_cast<float4*>(out)[i] = acc;
 }
 
+// adds: null, or 2 counters of the corner adds that went to device memory
+// ([0], each one atomic) and of those merged into the next sample's ([1])
 __global__ void __launch_bounds__(THREADS)
     splat_kernel(const float* __restrict__ g, const float* __restrict__ ndc,
                  float* __restrict__ gvol, long long M, int CG, int D, int HP,
-                 int WP) {
+                 int WP, unsigned long long* __restrict__ adds) {
+  constexpr unsigned ALL = 0xffffffffu;
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= M) return;
-  const long long s = i / CG;
-  const int cg = (int)(i % CG), C = CG * 4;
+  const int lane = threadIdx.x & 31, C = CG * 4;
   Taps t;
-  if (!taps(ndc + s * 3, D, HP, WP, t)) return;
-  const float4 gg = reinterpret_cast<const float4*>(g)[i];
+  // every lane of the warp takes part in the shuffles; x0 = -2 (no sample's
+  // tap) where this lane has no sample or its corners all lie outside
+  const bool on = i < M && taps(ndc + i / CG * 3, D, HP, WP, t);
+  const int kx = on ? t.x0 : -2, ky = on ? t.y0 : 0, kz = on ? t.z0 : 0;
+  const float4 gg = on ? reinterpret_cast<const float4*>(g)[i]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the previous sample's (lane - CG) taps, upper-corner weights and
+  // cotangent
+  const int px = __shfl_up_sync(ALL, kx, CG), py = __shfl_up_sync(ALL, ky, CG),
+            pz = __shfl_up_sync(ALL, kz, CG);
+  float pw[4];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k & 1, dy = (k >> 1) & 1, dz = k >> 2;
-    const int xi = t.x0 + dx, yi = t.y0 + dy, zi = t.z0 + dz;
-    if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
-      continue;
-    const float w = t.wx[dx] * t.wy[dy] * t.wz[dz];
-    float* dst = gvol + (((long long)zi * HP + yi) * WP + xi) * C + cg * 4;
-    atomicAdd(dst + 0, w * gg.x);
-    atomicAdd(dst + 1, w * gg.y);
-    atomicAdd(dst + 2, w * gg.z);
-    atomicAdd(dst + 3, w * gg.w);
+  for (int c = 0; c < 4; ++c)
+    pw[c] = __shfl_up_sync(
+        ALL, on ? t.wx[c & 1] * t.wy[c >> 1] * t.wz[1] : 0.f, CG);
+  const float4 pg = make_float4(
+      __shfl_up_sync(ALL, gg.x, CG), __shfl_up_sync(ALL, gg.y, CG),
+      __shfl_up_sync(ALL, gg.z, CG), __shfl_up_sync(ALL, gg.w, CG));
+  const bool take =
+      on && lane >= CG && px == kx && py == ky && pz + 1 == kz;
+  const unsigned takers = __ballot_sync(ALL, take);
+  const bool give = lane + CG < 32 && (takers >> (lane + CG) & 1u);
+  unsigned n_add = 0, n_merged = 0;
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dx = k & 1, dy = (k >> 1) & 1, dz = k >> 2;
+      const int xi = t.x0 + dx, yi = t.y0 + dy, zi = t.z0 + dz;
+      if (xi < 0 || xi >= WP || yi < 0 || yi >= HP || zi < 0 || zi >= D)
+        continue;
+      if (dz == 1 && give) {  // the next sample adds it
+        ++n_merged;
+        continue;
+      }
+      const float w = t.wx[dx] * t.wy[dy] * t.wz[dz];
+      float4 v = make_float4(w * gg.x, w * gg.y, w * gg.z, w * gg.w);
+      if (dz == 0 && take) {
+        const float u = pw[dx + 2 * dy];
+        v = make_float4(v.x + u * pg.x, v.y + u * pg.y, v.z + u * pg.z,
+                        v.w + u * pg.w);
+      }
+      ++n_add;
+      atomicAdd(reinterpret_cast<float4*>(
+                    gvol + (((long long)zi * HP + yi) * WP + xi) * C) +
+                    i % CG,
+                v);
+    }
+  }
+  if (adds != nullptr) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      n_add += __shfl_xor_sync(ALL, n_add, m);
+      n_merged += __shfl_xor_sync(ALL, n_merged, m);
+    }
+    if (lane == 0) {
+      atomicAdd(adds, (unsigned long long)n_add);
+      atomicAdd(adds + 1, (unsigned long long)n_merged);
+    }
   }
 }
 
@@ -139,14 +195,17 @@ extern "C" int volume_gather_fwd(const void* vol, const void* ndc, void* out,
   return (int)cudaGetLastError();
 }
 
+// gvol (D, HP, WP, C) must be zeroed by the caller; adds: null, or 2
+// zeroed counters (splat_kernel)
 extern "C" int volume_splat_bwd(const void* g, const void* ndc, void* gvol,
                                 int n_samples, int D, int HP, int WP, int C,
-                                void* stream) {
+                                void* adds, void* stream) {
   if (bad_args(n_samples, D, HP, WP, C)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)n_samples * (C / 4);
   if (M == 0) return 0;
   splat_kernel<<<(unsigned)((M + THREADS - 1) / THREADS), THREADS, 0,
-                 (cudaStream_t)stream>>>((const float*)g, (const float*)ndc,
-                                         (float*)gvol, M, C / 4, D, HP, WP);
+                 (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)ndc, (float*)gvol, M, C / 4, D, HP, WP,
+      (unsigned long long*)adds);
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,14 @@ K1 replaces mvsnerf_tpu/ops/pallas_sweep2.py:316 `cost_volume_xband_pallas`
 and its fallback pallas_sweep.py:504 `cost_volume_fused_pallas`; K2 their
 backward kernels (`_xb_bwd_kernel` pallas_sweep2.py:210, `_fused_bwd_kernel`
 pallas_sweep.py:432). What bounds them on the H100: the 4 B x (3V+C)
-per-voxel output write (K1) and cotangent read (K2). K2 tiles the
-reference columns and planes, and adds each block's taps into windows of
-the source images in shared memory (`BWD_*` below mirror csrc/sweep.cu;
-`bwd_window` is its window rule), then once per pixel into device memory;
-a tap outside its window goes to device memory directly.
+per-voxel output write (K1) and cotangent read (K2). K1 first lays the
+sources out quad-planar (`pack_quads` is that layout), so that a tap reads
+4 channels with one 16-byte load, then tiles the reference columns and
+planes, one channel group a block (`SW_*` below mirror csrc/sweep.cu). K2
+tiles them too, and adds each block's taps into windows of the source
+images in shared memory (`BWD_*`; `bwd_window` is its window rule), then
+once per pixel into device memory; a tap outside its window goes to
+device memory directly.
 """
 
 from __future__ import annotations
@@ -106,6 +109,22 @@ def sweep_cost_volume_bwd_plain(g, srcs, proj_mats, depth_values, pad: int,
         return torch.autograd.grad(out, s, g)[0]
 
 
+# K1's tiling (csrc/sweep.cu): a block owns SW_TX reference columns of
+# SW_TY rows over SW_RUN planes, for SW_CG feature channels (4 quads) or
+# the 3 rgb channels; a packed source pixel is SW_QUADS float4s
+SW_TX, SW_TY, SW_RUN, SW_CG, SW_QUADS = 32, 4, 16, 16, 9
+
+
+def pack_quads(srcs):
+    """K1's source layout: the (V, h, w, 35) sources as (V, SW_QUADS, h,
+    w, 4), quad q of a pixel its channels 4 q .. 4 q + 3, the last quad
+    [r, g, b, 0] (csrc/sweep.cu `sweep_pack_kernel`)."""
+    V, h, w, cs = srcs.shape
+    padded = torch.nn.functional.pad(srcs, (0, 4 * SW_QUADS - cs))
+    return padded.reshape(V, h, w, SW_QUADS, 4).permute(0, 3, 1, 2, 4) \
+        .contiguous()
+
+
 # K2's tiling (csrc/sweep.cu): a block owns BWD_TX reference columns of
 # BWD_TY rows, every BWD_YSTEP-th row, over BWD_RUN planes, for BWD_CG
 # feature channels or the 3 rgb channels; a source view's window holds at
@@ -167,16 +186,20 @@ def _check_args(srcs, proj_mats, depth_values, pad, c_feat):
 
 def sweep_cost_volume_kernel(srcs, proj_mats, depth_values, pad: int,
                              c_feat: int):
-    """K1 on the card (no autograd): the cost volume of `sweep_cost_volume`."""
+    """K1 on the card (no autograd): the cost volume of `sweep_cost_volume`.
+    One call launches the sources' relayout (`pack_quads`, into a scratch
+    tensor) and the sweep."""
     _check_args(srcs, proj_mats, depth_values, pad, c_feat)
     V, h, w, _ = srcs.shape
     D = depth_values.shape[0]
     out = torch.empty((1, 3 * V + c_feat, D, h + 2 * pad, w + 2 * pad),
                       device=srcs.device)
+    packed = torch.empty((V, SW_QUADS, h, w, 4), device=srcs.device)
     srcp = proj_mats[1:].contiguous()
     rc = library().sweep_cost_volume(
-        srcs.data_ptr(), srcp.data_ptr(), depth_values.data_ptr(),
-        out.data_ptr(), V, h, w, c_feat, D, pad, stream_of(srcs))
+        srcs.data_ptr(), packed.data_ptr(), srcp.data_ptr(),
+        depth_values.data_ptr(), out.data_ptr(), V, h, w, c_feat, D, pad,
+        stream_of(srcs))
     check(rc, "sweep_cost_volume")
     sweep_cost_volume.launches += 1
     return out

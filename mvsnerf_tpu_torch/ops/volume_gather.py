@@ -16,7 +16,9 @@ Replaces mvsnerf_tpu/ops/pallas_volgather2.py:268 `sample_volume_pallas2`
 (via `sample_volume_sorted`, render/renderer.py:187-193) and the role of
 the banded XLA VJP `sample_volume_train`. What bounds it on the H100: the
 forward reads 8 corners x 32 B per sample and writes 32 B; the backward
-zeroes the 150 MB volume gradient and issues 64 f32 atomics per sample.
+zeroes the 150 MB volume gradient and adds each corner's 4 channels with
+one 16-byte atomic, merging a sample's upper corners into the next
+sample's lower ones where they coincide (`splat_merges` is the rule).
 """
 
 from __future__ import annotations
@@ -64,9 +66,48 @@ def volume_gather_kernel(volume, ndc):
     return out
 
 
-def volume_splat_kernel(g, ndc, volume_shape):
+# threads of a warp: the splat's merges stay inside one
+WARP = 32
+
+
+def splat_merges(ndc, volume_shape):
+    """The splat's merge rule (csrc/volume_gather.cu `splat_kernel`), on
+    any device: thread i = s * CG + j (CG = C / 4) holds sample s's channels
+    4 j .. 4 j + 3. It takes the upper 4 corners of the thread CG lanes
+    before it in its warp of WARP threads (sample s - 1) into its lower 4
+    when both samples have a corner in the volume, the same x and y taps
+    and z taps one plane apart. Returns `take`, (N * S, CG) bool: thread
+    (s, j) takes sample s - 1's upper corners; and the counts the kernel's
+    `adds` reports, (corner adds to device memory, corner adds merged)."""
+    D, hp, wp, C = volume_shape
+    cg = C // 4
+    p = ndc.reshape(-1, 3)
+    size = torch.tensor([wp, hp, D], device=p.device)
+    # grid_sample(align_corners=True)'s coordinate, in the kernel's order
+    ix = (p * 2.0 - 1.0 + 1.0) / 2.0 * (size - 1)
+    on = ((ix > -1) & (ix < size)).all(-1)
+    base = ix.floor().long()
+    corners = [base + torch.tensor([k & 1, k >> 1 & 1, k >> 2],
+                                   device=p.device) for k in range(8)]
+    inside = torch.stack([((c >= 0) & (c < size)).all(-1) & on
+                          for c in corners], -1)          # (N * S, 8)
+    same = on[1:] & on[:-1] & (base[1:, :2] == base[:-1, :2]).all(-1) & \
+        (base[1:, 2] == base[:-1, 2] + 1)
+    lane = (torch.arange(len(p), device=p.device)[:, None] * cg +
+            torch.arange(cg, device=p.device)) % WARP       # (N * S, CG)
+    take = torch.zeros((len(p), cg), dtype=torch.bool, device=p.device)
+    take[1:] = same[:, None] & (lane[1:] >= cg)
+    upper = inside[:, 4:].sum(-1)                           # per sample
+    merged = int((take[1:] * upper[:-1, None]).sum())
+    return take, (int(inside.sum()) * cg - merged, merged)
+
+
+def volume_splat_kernel(g, ndc, volume_shape, adds=None):
     """K5 backward on the card: the (D, hp, wp, C) volume gradient of the
-    (N, S, C) cotangent `g`, zeroed then splatted with atomics."""
+    (N, S, C) cotangent `g`, zeroed then splatted with 16-byte atomics.
+    `adds`, when given, is a zeroed int64 CUDA tensor of 2 to which the
+    kernel adds its corner adds to device memory and those it merged into
+    the next sample's (`splat_merges`)."""
     D, hp, wp, C = volume_shape
     gvol = torch.zeros(volume_shape, device=g.device)
     _check_args(gvol, ndc)
@@ -74,10 +115,15 @@ def volume_splat_kernel(g, ndc, volume_shape):
             g.device != gvol.device or not g.is_contiguous():
         raise ValueError(f"volume splat kernel: bad cotangent "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if adds is not None and (adds.shape != (2,) or
+                             adds.dtype != torch.int64 or
+                             adds.device != gvol.device):
+        raise ValueError(f"volume splat kernel: adds must be an int64 (2,) "
+                         f"tensor on {gvol.device}")
     N, S, _ = ndc.shape
     rc = library().volume_splat_bwd(
         g.data_ptr(), ndc.data_ptr(), gvol.data_ptr(), N * S, D, hp, wp, C,
-        stream_of(g))
+        None if adds is None else adds.data_ptr(), stream_of(g))
     check(rc, "volume_splat_bwd")
     sample_volume.bwd_launches += 1
     return gvol
