@@ -7,8 +7,9 @@ Drives the port's paths at DTU scale on synthetic 640x512 scenes made
 from a seed, with seeded random weights: no-finetune inference, the
 per-scene fine-tune step and the generalizable training step, the last
 also with the U-Net on the hand-written K10 kernels (`--costreg_impl
-dband`), the colour-baked volume with the eval and video entry points, and
-the render's gradient in its source images (K4's backward).
+dband`), the colour-baked volume with the eval and video entry points,
+the render's gradient in its source images (K4's backward), and the
+density volume with importance sampling and `--use_disp`.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -119,7 +120,22 @@ the render's gradient in its source images (K4's backward).
      reset just before the kernels' run); (c) K4's backward launched in
      this phase and in no earlier one (no trainer reaches it, and the
      forward-only route is unchanged); (d) asking the card for d pts_world
-     raises.
+     raises;
+ 11. the density volume and importance sampling, at phase 6's
+     configuration with `--use_density_volume --N_importance 64` (S =
+     192): (a) `update_density_volume` over the (128, 176, 208) voxels,
+     CUDA-event ms against its bound, 65,536 of its voxels against a
+     float64 run of `render_density` (TOL_DENSITY); (b) one step on the
+     kernels against one on the twins from one state; (c) 36 steps of
+     `fit` (refreshing at step 0; launch counters reset just before),
+     timed over the last 30, beside phase 6's step; (d) K5 and K7 against
+     their twins at the step's S = 192 shapes, K6b and K8 on one
+     16384-ray chunk of the tiled render's samples (importance depths from
+     a generator seeded 1) against their twins and float64; (e) one
+     640x512 `render_image` in the `tiled` and one in the `chunked` mode
+     with the density volume: finite, K6b / K8 launched; (f) one step
+     with `--use_disp` (MVSNet's planes, the samples and NDC linear in
+     disparity) on the kernels against the twins.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -211,6 +227,13 @@ K10_ENTRIES = {
 # contain "conv3d_" or "wgrad_reduce"
 CONV_LIBRARY_NAMES = ("conv", "fprop", "dgrad", "wgrad", "implicit",
                       "winograd")
+# phase 11, the density volume: importance samples a ray beside phase 6's
+# N_SAMPLES, and the voxels of the refresh held to a float64 run. The
+# refresh runs the MLP's alpha head in f32 layers (TF32 off) on the same
+# float32 points and features as the float64 run: the sums of 6 layers of
+# 128 and the PE's sines differ by ~1e-6 of their size, so TOL_DENSITY x
+# (1 + max|sigma|) leaves a tenfold margin
+N_IMPORTANCE, DENSITY_HELD, TOL_DENSITY = 64, 65536, 1e-5
 
 
 def require(cond, msg):
@@ -819,12 +842,13 @@ def k7_pair(x, g, m, m64, packed):
     return out
 
 
-def k7_entries(kernels, x, m, gen, failures):
+def k7_entries(kernels, x, m, gen, failures, suffix=""):
     """Phase 6c's K7: forward and backward against their twins and a
     float64 run of the twin at the step's x and at a ragged N, the weight
     streams against their Python packings, dW bit-identical over two
     calls, the forward with and without saving its state, and the
-    kernels-line entries (bound in 3xTF32, the f32 one beside it)."""
+    kernels-line entries (bound in 3xTF32, the f32 one beside it), their
+    names with `suffix`."""
     import torch
     from mvsnerf_tpu_torch.ops import mlp_train as k7
     from mvsnerf_tpu_torch.ops import render_fused as rf
@@ -867,11 +891,13 @@ def k7_entries(kernels, x, m, gen, failures):
     print(f"   K7 bwd: two calls bit-identical (dW, dx): {same}")
     check(same, "K7's backward is not deterministic", failures)
     x_r = x.clone().requires_grad_()
-    kernel_entry(kernels, "K7 mlp_v0 (fwd)", src7, rep7, *full["fwd"],
+    kernel_entry(kernels, f"K7 mlp_v0{suffix} (fwd)", src7, rep7,
+                 *full["fwd"],
                  lambda: k7.mlp_v0_fwd_kernel(x, packed, scratch),
                  lambda: m(x), None, nbytes(x, packed, full["o_k"]),
                  mlp_flops(len(x)), RENDER_TC_PASSES)
-    kernel_entry(kernels, "K7 mlp_v0 (bwd)", src7, rep7, *full["dw"],
+    kernel_entry(kernels, f"K7 mlp_v0{suffix} (bwd)", src7, rep7,
+                 *full["dw"],
                  lambda: k7.mlp_v0_bwd_kernel(g7, x, packed, scratch),
                  grad_only(lambda: m(x_r), [x_r, *m.parameters()], g7),
                  None, nbytes(g7, x, packed, full["dx_k"], full["dw_k"]),
@@ -893,7 +919,8 @@ def k7_entries(kernels, x, m, gen, failures):
 
 
 def finetune_phase(dev, mlp, mvsnet, failures):
-    """Phase 6; returns the K5 and K7 entries of the kernels line."""
+    """Phase 6; returns the K5 and K7 entries of the kernels line and the
+    step's ms."""
     import torch
     from mvsnerf_tpu_torch.ops import mlp_train as k7
     from mvsnerf_tpu_torch.ops.color_warp import color_warp
@@ -921,7 +948,8 @@ def finetune_phase(dev, mlp, mvsnet, failures):
                 **k5_counters(),
                 "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
                 "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
-    launches, _ = timed_fit(6, system, counters, plain_step_ms, failures)
+    launches, step_ms = timed_fit(6, system, counters, plain_step_ms,
+                                  failures)
 
     # ---- (c) K5 and K7 against their twins at the step's shapes, after
     # the timed steps: their device times come from torch.profiler, which
@@ -942,13 +970,26 @@ def finetune_phase(dev, mlp, mvsnet, failures):
         k["launches"] = launches[k["name"]]
 
     # ---- (d) device time of one step by kernel group
+    step_profile(6, system, rays, rgbs, gen, FT_STEP_GROUPS)
+    return kernels, step_ms
+
+
+# kernel groups of a fine-tune step's profile, by name fragment
+FT_STEP_GROUPS = {
+    "K7": ("mlp_pack_kernel", "mlp_fwd_kernel", "mlp_delta_kernel",
+           "mlp_dw_kernel", "mlp_dw_reduce"),
+    "K5 fwd": ("gather_kernel",), "K5 bwd": ("splat_kernel",),
+    "K4": ("color_warp_kernel",),
+    "Adam (multi_tensor_apply)": ("multi_tensor_apply",),
+    "fills (zeroed buffers)": ("FillFunctor",)}
+
+
+def step_profile(phase, system, rays, rgbs, gen, groups):
+    """`torch.profiler` over 3 fine-tune steps: device busy share and time
+    by kernel group (`groups`: name -> name fragments) and the 10 largest
+    kernels."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    groups = {"K7": ("mlp_pack_kernel", "mlp_fwd_kernel", "mlp_delta_kernel",
-                     "mlp_dw_kernel", "mlp_dw_reduce"),
-              "K5 fwd": ("gather_kernel",), "K5 bwd": ("splat_kernel",),
-              "K4": ("color_warp_kernel",),
-              "Adam (multi_tensor_apply)": ("multi_tensor_apply",),
-              "fills (zeroed buffers)": ("FillFunctor",)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -966,22 +1007,21 @@ def finetune_phase(dev, mlp, mvsnet, failures):
                 e.time_range.elapsed_us()
     total = sum(by_name.values())
     if total == 0:
-        print("[6 profile] the profiler saw no device time")
-        return kernels
+        print(f"[{phase} profile] the profiler saw no device time")
+        return
     shares = {g: 0.0 for g in groups}
     shares["rest"] = 0.0
     for name, us in by_name.items():
         g = next((g for g, keys in groups.items()
                   if any(key in name for key in keys)), "rest")
         shares[g] += us
-    print(f"[6 profile] 3 steps: device busy {total / 1e3:.2f} of "
+    print(f"[{phase} profile] 3 steps: device busy {total / 1e3:.2f} of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f} %); "
           f"per step {total / 3e3:.2f} ms of kernels")
     for g, us in shares.items():
         print(f"   {g}: {us / 3e3:.3f} ms/step ({100 * us / total:.1f} %)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"   {us / 3e3:8.3f} ms/step  {name[:110]}")
-    return kernels
 
 
 def k5_counters(suffix=""):
@@ -2369,6 +2409,214 @@ def image_grad_phase(dev, mlp, mvsnet, requests, earlier, failures):
     return entry
 
 
+def density_chunk(system, rays, mlp):
+    """Phase 11d's K6b and K8 inputs: the tiled render's samples of
+    `rays` (unjittered, importance depths drawn from a generator seeded 1)
+    over the trainer's density volume, their unit directions, the
+    20-channel volume of the tiled render and the chunked render's
+    features (the volume's fetch and K4's colours)."""
+    import torch
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.interp import index_point_feature
+    from mvsnerf_tpu_torch.render.renderer import gen_dir_feature, \
+        sample_rays
+    pose_t = system.pose_source
+    w2cs, intrs = pose_t["w2cs"], pose_t["intrinsics"]
+    gen = torch.Generator(device=rays.device).manual_seed(1)
+    pts, rays_d, z, ndc = sample_rays(
+        rays, N_SAMPLES, w2cs[0], intrs[0], system.imgs.shape[1:3],
+        system.near_far, PAD, generator=gen,
+        density_volume=system.density_volume, n_importance=N_IMPORTANCE)
+    unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    volume = system.volume.detach()
+    vol20 = torch.cat([volume, system.color_feature], -1).contiguous()
+    colors = color_warp(pts.contiguous(), w2cs, intrs,
+                        system.imgs.contiguous())
+    feats = torch.cat([index_point_feature(volume, ndc), colors],
+                      -1).contiguous()
+    return (ndc.contiguous(), z.contiguous(),
+            gen_dir_feature(w2cs[0], unit).contiguous(), vol20, feats)
+
+
+def density_phase(dev, mlp, mvsnet, failures, ft_step_ms):
+    """Phase 11; returns the S = N_SAMPLES + N_IMPORTANCE entries of K5,
+    K7, K6b and K8. `ft_step_ms` is phase 6's step at N_SAMPLES."""
+    import torch
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.render.renderer import render_density
+    s_all = N_SAMPLES + N_IMPORTANCE
+    sfx = f" S={s_all}"
+    src6 = "mvsnerf_tpu_torch/csrc/render_v0.cu"
+    flags = f"--use_density_volume --N_importance {N_IMPORTANCE}"
+
+    t0 = time.perf_counter()
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlp, mvsnet, scene, flags)
+    print(f"[11 density] phase 6's configuration with {flags} (S = "
+          f"{s_all}); set up in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) the density refresh, and a sample of it against float64
+    n_vox = system.volume[..., 0].numel()
+    refresh_ms = cuda_ms(system.update_density_volume)
+    dv = system.density_volume
+    require(tuple(dv.shape) == (N_PLANES, H // 4 + 2 * PAD,
+                                W // 4 + 2 * PAD, 1)
+            and bool(torch.isfinite(dv).all()),
+            f"density volume {tuple(dv.shape)} not finite or not "
+            "(128, 176, 208, 1)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    idx = torch.randperm(n_vox, generator=gen, device=dev)[:DENSITY_HELD]
+    feats = torch.cat([system.volume.detach(), system.color_feature],
+                      -1).reshape(n_vox, -1)[idx]
+    pts = system.vox_pts.reshape(-1, 3)[idx]
+    ref = render_density(copy.deepcopy(mlp).double(), pts.double(),
+                         feats.double())
+    d_err = max_err(dv.reshape(-1, 1)[idx].double(), ref)
+    d_tol = TOL_DENSITY * (1 + float(ref.abs().max()))
+    # the alpha head's multiply-adds a voxel: the trunk and alpha_linear
+    macs = sum(i * o for name, i, o in rf._LAYERS if name not in (
+        "feature_linear", "views_linears.0", "rgb_linear"))
+    r_bound = bound(nbytes(system.vox_pts, system.volume,
+                           system.color_feature, dv), 2 * macs * n_vox)
+    print(f"[11 refresh] update_density_volume: {n_vox} voxels in "
+          f"{refresh_ms:.2f} ms (CUDA events), bound {r_bound['bound_ms']:.2f}"
+          f" ms ({r_bound['bound_by']}, f32 layers); sigma > 0 at "
+          f"{float((dv > 0).float().mean()):.3f} of the voxels; "
+          f"{DENSITY_HELD} voxels vs float64: max abs err {d_err:.3e} (tol "
+          f"{d_tol:.1e})")
+    check(d_err <= d_tol, "[11] the density refresh disagrees with float64",
+          failures)
+    del idx, feats, pts, ref
+
+    # ---- (b) one step on the kernels, one on the twins, same state
+    rays, rgbs = first_batch(scene, dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        z_step = system._samples(rays, gen)[2]
+    require(tuple(z_step.shape) == (FT_BATCH, s_all),
+            f"the step's samples {tuple(z_step.shape)}")
+    plain_step_ms = step_parity(11, system, rays, rgbs, gen, failures)
+
+    # ---- (c) the main path: fit (refreshing at step 0), launch counters
+    # reset just before
+    counters = {"K4 color_warp": (color_warp, "launches"),
+                **k5_counters(sfx),
+                f"K7 mlp_v0{sfx} (fwd)": (k7.mlp_v0_train, "launches"),
+                f"K7 mlp_v0{sfx} (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    launches, step_ms = timed_fit(11, system, counters, plain_step_ms,
+                                  failures)
+    print(f"[11 fit] the step at S={s_all}: {step_ms:.2f} ms against phase "
+          f"6's {ft_step_ms:.2f} ms at S={N_SAMPLES} "
+          f"({step_ms / ft_step_ms:.2f}x); a refresh every 200 of these "
+          f"steps adds {refresh_ms / (200 * step_ms):.2%} to their time")
+
+    # ---- (d) K5 and K7 at the step's shapes, K6b and K8 on one chunk
+    kernels = []
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        ndc = system._samples(rays, gen)[3].contiguous()
+        k5_entries(kernels, system.volume.detach(), ndc, gen, failures, sfx)
+        gen.manual_seed(SEED)
+        x = system.mlp_input(rays, gen).reshape(-1, 86).contiguous()
+        k7_entries(kernels, x, system.mlp, gen, failures, sfx)
+        del ndc, x
+        chunk = rays_for_pose(pose(0, 0.01, 0.05),
+                              scene.pose_source["intrinsics"][0], H, W,
+                              dev)[:CHUNK]
+        ndc, z, dirs, vol20, feats = density_chunk(system, chunk, mlp)
+        n_samp = ndc[..., 0].numel()
+        mlp64 = copy.deepcopy(mlp).double()
+        b_args = (ndc, z, None, dirs, vol20, mlp)
+        r_k, r_p = rf.render_v0(*b_args), rf.render_v0_plain(*b_args)
+        kernel_entry(kernels, f"K6b render_v0{sfx} (baked)", src6,
+                     "mvsnerf_tpu/ops/pallas_render_tiled.py:313",
+                     max_err(r_k, r_p), TOL_K6,
+                     lambda: rf.render_v0(*b_args),
+                     lambda: rf.render_v0_plain(*b_args), None,
+                     nbytes(ndc, z, dirs, *r_k.values()) +
+                     touched_volume_bytes(vol20, ndc), mlp_flops(n_samp),
+                     RENDER_TC_PASSES, **f64_anchor(
+                         r_k, r_p, lambda: rf.render_v0_plain(
+                             ndc.double(), z.double(), None, dirs.double(),
+                             vol20.double(), mlp64)))
+        f_args = (ndc, feats, dirs, z, mlp)
+        f_k, f_p = rf.render_v0_feats(*f_args), rf.render_v0_feats_plain(
+            *f_args)
+        kernel_entry(kernels, f"K8 render_v0_feats{sfx}", src6,
+                     "mvsnerf_tpu/ops/pallas_kernels.py:196",
+                     max_err(f_k, f_p), TOL_K6,
+                     lambda: rf.render_v0_feats(*f_args),
+                     lambda: rf.render_v0_feats_plain(*f_args), None,
+                     nbytes(ndc, feats, dirs, z, *f_k.values()),
+                     mlp_flops(n_samp), RENDER_TC_PASSES, **f64_anchor(
+                         f_k, f_p, lambda: rf.render_v0_feats_plain(
+                             ndc.double(), feats.double(), dirs.double(),
+                             z.double(), mlp64)))
+        print(f"   K6b / K8 chunk: {CHUNK} x {ndc.shape[1]} samples, acc "
+              f"mean {float(r_p['acc'].mean()):.4f}")
+        del ndc, z, dirs, vol20, feats, r_k, r_p, f_k, f_p, b_args, \
+            f_args, mlp64
+    report(11, kernels, failures)
+    for k in kernels:
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
+    # where the refresh's time goes (cuBLAS's f32 GEMMs against the rest),
+    # and the step's, with the importance step's kernels as a group
+    by_name = device_ms(system.update_density_volume, reps=2)
+    gemm = sum(ms for name, ms in by_name.items() if "gemm" in name.lower())
+    print(f"[11 profile] the refresh on the device: "
+          f"{sum(by_name.values()):.2f} ms, of which GEMMs {gemm:.2f}; "
+          f"largest: " + ", ".join(
+              f"{name[:60]} {ms:.2f}" for name, ms in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])[:4]))
+    step_profile(11, system, rays, rgbs, gen, {
+        **FT_STEP_GROUPS, "importance draws (grid_sample, scans, "
+        "searchsorted, gather, sort)": ("grid_sampler_3d", "scan",
+                                        "searchsorted", "scatter_gather",
+                                        "Sort", "sort")})
+
+    # ---- (e) one 640x512 render_image per mode with the density volume
+    rays_img = rays_for_pose(pose(0, 0.01, 0.05),
+                             scene.pose_source["intrinsics"][0], H, W,
+                             dev).cpu().numpy()
+    for mode, (fn, attr) in (("tiled", (rf.render_v0, "baked_launches")),
+                             ("chunked", (rf.render_v0_feats, "launches"))):
+        setattr(fn, attr, 0)
+        with swapped(system.args, "render_mode", mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = system.render_image(rays_img, chunk=CHUNK)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = getattr(fn, attr)
+        ok = all(tuple(out[k].shape[:1]) == (H * W,) and
+                 bool(torch.isfinite(out[k]).all())
+                 for k in ("rgb", "depth"))
+        name = f"K6b render_v0{sfx} (baked)" if mode == "tiled" else \
+            f"K8 render_v0_feats{sfx}"
+        next(k for k in kernels if k["name"] == name)["launches"] = n
+        print(f"[11 render] render_image {mode}: {H}x{W} rays at S={s_all} "
+              f"in {ms:.1f} ms (from host rays; the tiled one joins the "
+              f"colours to the volume first), {name.split()[0]} launches "
+              f"{n}, finite {ok}")
+        check(ok and n > 0, f"[11] the {mode} render with the density "
+              "volume is not finite or never launched its kernel", failures)
+        del out
+    del system, rays_img
+    torch.cuda.empty_cache()
+
+    # ---- (f) one step with --use_disp, kernels against twins
+    system = finetune_system(dev, mlp, mvsnet, scene, "--use_disp")
+    print(f"[11 disp] --use_disp: MVSNet's volume on planes linear in "
+          f"disparity, {tuple(system.volume.shape)}")
+    step_parity("11 disp", system, rays, rgbs, gen, failures)
+    del system
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2599,7 +2847,8 @@ def main():
 
     # ---- 6. fine-tune
     torch.cuda.empty_cache()
-    kernels += finetune_phase(dev, mlp, mvsnet, failures)
+    entries, ft_step_ms = finetune_phase(dev, mlp, mvsnet, failures)
+    kernels += entries
     note_k4_bwd(6)
 
     # ---- 7. generalizable training
@@ -2628,6 +2877,10 @@ def main():
     torch.cuda.empty_cache()
     kernels.append(image_grad_phase(dev, mlp, mvsnet, requests, k4_bwd,
                                     failures))
+
+    # ---- 11. the density volume and importance samples, and --use_disp
+    torch.cuda.empty_cache()
+    kernels += density_phase(dev, mlp, mvsnet, failures, ft_step_ms)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

@@ -8,7 +8,8 @@ mvsnerf_tpu/models/nerf_mlp.py `mlp_v0_apply`.
     rgb = sigmoid(rgb_linear(relu(views_linears[0]([feature_linear(h) |
                                                     viewdirs]))))
 
-Input layout x = [PE(xyz_ndc) (63) | features (20) | viewdirs (3)].
+Input layout x = [PE(xyz_ndc) (63) | features (20) | viewdirs (3)];
+`forward_alpha` takes x without the viewdirs and returns alpha alone.
 State-dict keys are the reference's network_fn_state_dict keys (`nerf.*`).
 """
 
@@ -38,16 +39,26 @@ class RendererOurs(nn.Module):
         self.alpha_linear = nn.Linear(W, 1, device=device)
         self.rgb_linear = nn.Linear(W // 2, 3, device=device)
 
-    def forward(self, x):
-        """x (..., 63 + 20 + 3) -> (..., 4) RGBA."""
-        input_pts, input_feats, input_views = torch.split(
-            x, [IN_PTS, IN_FEAT, IN_VIEWS], dim=-1)
+    def _trunk(self, input_pts, input_feats):
         bias = self.pts_bias(input_feats)
         h = input_pts
         for i, lin in enumerate(self.pts_linears):
             h = torch.relu(lin(h) * bias)
             if i == SKIP:
                 h = torch.cat([input_pts, h], dim=-1)
+        return h
+
+    def forward_alpha(self, x):
+        """x (..., 63 + 20) -> (..., 1) alpha (reference models.py:176-191,
+        JAX `mlp_v0_alpha`)."""
+        h = self._trunk(*torch.split(x, [IN_PTS, IN_FEAT], dim=-1))
+        return torch.relu(self.alpha_linear(h))
+
+    def forward(self, x):
+        """x (..., 63 + 20 + 3) -> (..., 4) RGBA."""
+        input_pts, input_feats, input_views = torch.split(
+            x, [IN_PTS, IN_FEAT, IN_VIEWS], dim=-1)
+        h = self._trunk(input_pts, input_feats)
         alpha = torch.relu(self.alpha_linear(h))
         h = torch.cat([self.feature_linear(h), input_views], dim=-1)
         for lin in self.views_linears:
@@ -65,3 +76,6 @@ class MVSNeRF(nn.Module):
 
     def forward(self, x):
         return self.nerf(x)
+
+    def forward_alpha(self, x):
+        return self.nerf.forward_alpha(x)

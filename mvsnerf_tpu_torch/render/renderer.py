@@ -16,6 +16,11 @@ every full-image render), the gathered features go to K8
 (`render_v0_feats`) for PE, MLP and compositing in one kernel; otherwise
 the eval route runs the module's MLP and `raw2outputs`. `twins=True` runs
 the kernels' plain twins instead, to hold one against the other.
+
+`render_density` evaluates the MLP's alpha head alone over the volume's
+voxels, the density volume's refresh (`--use_density_volume`), and
+`sample_rays` with a density volume adds importance samples drawn from it
+(`--N_importance`).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from ..ops.geometry import get_ndc_coordinate
 from ..ops.interp import index_point_feature
 from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
 from ..ops.render_fused import render_v0_feats, render_v0_feats_plain
-from ..ops.sampling import ray_marcher
+from ..ops.sampling import ray_marcher, ray_marcher_fine
 from ..ops.volume_gather import sample_volume, sample_volume_plain
 
 
@@ -122,26 +127,56 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
     return raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
 
 
+# voxels a chunk of `render_density`: its widest activation, [PE | h]
+# after the skip, is 191 floats a voxel, 200 MB at 2**18 voxels (the whole
+# 128 x 176 x 208 DTU volume, 4.69M voxels, would take 3.6 GB a layer)
+DENSITY_CHUNK = 2 ** 18
+
+
+@torch.no_grad()
+def render_density(mlp, pts, feats, chunk: int = DENSITY_CHUNK):
+    """The MLP's density at (M, 3) points with (M, 20) features: relu of
+    the alpha head over [PE(pts) (10 frequencies) | feats], (M, 1)
+    (JAX renderer.py:316 `render_density`). Runs `chunk` points at a time,
+    in plain f32 layers (JAX computes it in XLA, outside any kernel)."""
+    return torch.cat([
+        mlp.forward_alpha(torch.cat([positional_encoding(p, 10), f], -1))
+        for p, f in zip(pts.split(chunk), feats.split(chunk))])
+
+
 def sample_rays(rays, n_samples: int, w2c_ref, intrinsic_ref, src_hw,
                 near_far, pad: int, perturb: float = 0.0,
                 generator: torch.Generator | None = None,
-                lindisp: bool = False):
+                lindisp: bool = False, density_volume=None,
+                n_importance: int = 0):
     """Samples of a (N, 8) ray buffer and their reference NDC: (pts
     (N, S, 3), rays_d (N, 3), z_vals (N, S), pts_ndc (N, S, 3)). Depths
     are jittered by `perturb` with draws from `generator` (on the rays'
     device), and with `lindisp` spaced, and mapped to NDC z, linearly in
     disparity (`--use_disp`). NDC is normalised by the SOURCE views'
     extent `src_hw`: the volume's feature grid is sized by them (the pad
-    remap)."""
+    remap). With a (D, hp, wp, 1) `density_volume` and `n_importance` > 0,
+    `n_importance` more depths a ray are drawn from it after the jitter,
+    from the same generator, and S = n_samples + n_importance (JAX
+    finetune.py:166-175)."""
     pts, _, rays_d, z_vals = ray_marcher(rays, n_samples, perturb=perturb,
                                          lindisp=lindisp,
                                          generator=generator)
     # staged copy: a blocking one would wait for the device every batch
     inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0]).to(
         rays.device, non_blocking=True)
-    pts_ndc = get_ndc_coordinate(w2c_ref, intrinsic_ref, pts, inv_scale,
-                                 near=near_far[0], far=near_far[1], pad=pad,
-                                 lindisp=lindisp)
+
+    def ndc(p):
+        return get_ndc_coordinate(w2c_ref, intrinsic_ref, p, inv_scale,
+                                  near=near_far[0], far=near_far[1], pad=pad,
+                                  lindisp=lindisp)
+
+    pts_ndc = ndc(pts)
+    if density_volume is not None and n_importance > 0:
+        pts, _, rays_d, z_vals = ray_marcher_fine(
+            rays, density_volume, z_vals, pts_ndc, n_importance,
+            generator=generator)
+        pts_ndc = ndc(pts)
     return pts, rays_d, z_vals, pts_ndc
 
 

@@ -24,16 +24,15 @@ from .renderer import build_color_volume, gen_dir_feature, \
 
 
 @torch.no_grad()
-def bake_color_volume(volume, imgs, pose_source, near_far, pad):
-    """Append the per-view reprojected colours and masks at every voxel
-    centre to the encoding volume (the reference's use_color_volume
-    layout, train_mvs_nerf_finetuning_pl.py:72-80): (D, hp, wp, 8) ->
-    (D, hp, wp, 8 + 4V) as [8 encoding | per view (RGB, mask)], the
-    colours by K4. The reference camera is
+def color_feature_volume(volume_shape, imgs, pose_source, near_far, pad):
+    """The world-space voxel centres of a (D, hp, wp, C) volume,
+    (D, hp, wp, 3) (`frustum_point_volume`), and the per-view reprojected
+    colours and masks there, (D, hp, wp, 4V) as per view (RGB, mask), the
+    colours by K4 (JAX finetune.py:116-128). The reference camera is
     `pose_source["c2ws"][0]`, or the inverse of `w2cs[0]` when the pose
     dict carries no c2ws (the Evaluator's)."""
     from ..train.finetune import frustum_point_volume
-    d, hp, wp, _ = volume.shape
+    d, hp, wp = volume_shape[:3]
     intr_ref = pose_source["intrinsics"][0]
     intrinsic_s4 = intr_ref / torch.tensor([[4.0], [4.0], [1.0]],
                                            device=intr_ref.device)
@@ -44,13 +43,25 @@ def bake_color_volume(volume, imgs, pose_source, near_far, pad):
                                intrinsic_s4, c2w_ref)
     color = build_color_volume(vox.reshape(d, -1, 3), pose_source["w2cs"],
                                pose_source["intrinsics"], imgs)
-    return torch.cat([volume, color.reshape(d, hp, wp, -1)], -1) \
-        .contiguous()
+    return vox, color.reshape(d, hp, wp, -1)
+
+
+def bake_color_volume(volume, imgs, pose_source, near_far, pad):
+    """Append the per-view reprojected colours and masks at every voxel
+    centre to the encoding volume (the reference's use_color_volume
+    layout, train_mvs_nerf_finetuning_pl.py:72-80): (D, hp, wp, 8) ->
+    (D, hp, wp, 8 + 4V) as [8 encoding | per view (RGB, mask)]
+    (`color_feature_volume`)."""
+    color = color_feature_volume(volume.shape, imgs, pose_source, near_far,
+                                 pad)[1]
+    return torch.cat([volume.detach(), color], -1).contiguous()
 
 
 def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
                         n_samples: int, pad: int, white_bkgd: bool = False,
-                        chunk: int = 16384, lindisp: bool = False):
+                        chunk: int = 16384, lindisp: bool = False,
+                        density_volume=None, n_importance: int = 0,
+                        color_feature=None):
     """Return fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,).
 
     Args:
@@ -65,9 +76,18 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
         lindisp: samples linear in disparity (`--use_disp`); the bake stays
             at the voxel centres of `frustum_point_volume`, linear in depth,
             as JAX's does (mvsnerf_tpu/render/tiled.py:61, 169, 176).
+        density_volume: (D, hp, wp, 1) sigma volume; with `n_importance`
+            > 0 each ray adds that many depths drawn from it, S =
+            n_samples + n_importance, the uniforms from a generator seeded
+            1 at each call (JAX tiled.py:179-183, `PRNGKey(1)`).
+        color_feature: the (D, hp, wp, 12) colours of
+            `color_feature_volume`, baked already: an 8-channel volume is
+            joined to them instead of baked again (JAX tiled.py:100-102).
     The returned function carries the baked volume as `.volume`.
     """
-    if volume.shape[-1] == 8:
+    if volume.shape[-1] == 8 and color_feature is not None:
+        volume = torch.cat([volume.detach(), color_feature], -1)
+    elif volume.shape[-1] == 8:
         volume = bake_color_volume(volume, imgs, pose_source, near_far, pad)
     if volume.shape[-1] != N_FEATS:
         raise ValueError(f"tiled render: volume {tuple(volume.shape)}; the "
@@ -77,10 +97,11 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
     w2cs = pose_source["w2cs"].contiguous()
     intrinsics = pose_source["intrinsics"].contiguous()
 
-    def chunk_fn(rays):
+    def chunk_fn(rays, gen):
         _, rays_d, z_vals, pts_ndc = sample_rays(
             rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad, lindisp=lindisp)
+            near_far, pad, generator=gen, lindisp=lindisp,
+            density_volume=density_volume, n_importance=n_importance)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         out = render_v0(pts_ndc.contiguous(), z_vals.contiguous(), None,
                         gen_dir_feature(w2cs[0], unit).contiguous(), volume,
@@ -89,27 +110,39 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
             out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
         return out
 
-    render = image_renderer(chunk_fn, chunk)
+    def render(rays, H: int, W: int):
+        gen = torch.Generator(device=rays.device).manual_seed(1)
+        return image_renderer(lambda r: chunk_fn(r, gen), chunk)(rays, H, W)
+
     render.volume = volume
     return render
 
 
 def cached_tiled_renderer(system, volume, imgs, near_far, pose_source,
                           **kw):
-    """`make_tiled_renderer` memoised on `system` until `volume` or the
-    keyword arguments change: per-frame video and validation renders reuse
-    one bake. The key is the volume's identity (a weak reference), its
-    `_version`, which every in-place update bumps (Adam's step,
-    `load_state`'s copy), and `kw` (`chunk`, `n_samples`, ...): the
+    """`make_tiled_renderer` memoised on `system` until `volume`, a tensor
+    among the keyword arguments or another keyword argument changes:
+    per-frame video and validation renders reuse one bake. Each tensor is
+    keyed by its identity (a weak reference) and its `_version`, which
+    every in-place update bumps (Adam's step, `load_state`'s copy): the
     trainer updates the volume in place, so identity alone would keep a
-    stale bake. The MLP is read live at each call and needs no key."""
-    key = (volume._version, tuple(sorted(kw.items())))
+    stale bake, and it replaces the density volume at each refresh, so the
+    renderer must follow it. Other keyword arguments (`chunk`,
+    `n_samples`, ...) are keyed by value. The MLP is read live at each
+    call and needs no key."""
+    tensors = {"volume": volume,
+               **{k: v for k, v in kw.items() if torch.is_tensor(v)}}
+    key = (tuple(sorted((k, v) for k, v in kw.items()
+                        if not torch.is_tensor(v))),
+           tuple(sorted((k, t._version) for k, t in tensors.items())))
     cached = getattr(system, "_tiled_cache", None)
     if cached is not None:
-        ref, cached_key, fn = cached
-        if ref() is volume and cached_key == key:
+        refs, cached_key, fn = cached
+        if cached_key == key and refs.keys() == tensors.keys() and \
+                all(refs[k]() is t for k, t in tensors.items()):
             return fn
     fn = make_tiled_renderer(system.mlp, volume, imgs, near_far, pose_source,
                              **kw)
-    system._tiled_cache = (weakref.ref(volume), key, fn)
+    system._tiled_cache = ({k: weakref.ref(t) for k, t in tensors.items()},
+                           key, fn)
     return fn

@@ -13,9 +13,15 @@ volume (render/tiled.py:`bake_color_volume`), which becomes a trainable
 20-channel volume: the step fetches all 20 features through K5 and warps
 no colours, and Adam holds {mlp, volume} only.
 
-Refused with NotImplementedError (ROADMAP.md): the density volume and
-`N_importance > 0`, `use_disp`, MLPs other than v0 at D=6, W=128, and
-reading the JAX package's `.msgpack` snapshots.
+With `--use_density_volume` the MLP's density at the voxel centres is
+baked into a (D, hp, wp, 1) density volume every 200 steps
+(`update_density_volume`), and with `--N_importance` > 0 each ray adds
+that many depths drawn from it (inverse CDF) to its `N_samples`;
+validation then runs 100 steps off the refresh. `--use_disp` spaces the
+sweep planes, the samples and NDC z linearly in disparity.
+
+Refused with NotImplementedError (ROADMAP.md): MLPs other than v0 at D=6,
+W=128, and reading the JAX package's `.msgpack` snapshots.
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ from ..io.torch_ckpt import load_reference_checkpoint
 from ..models.mvsnet import MVSNet
 from ..models.nerf_mlp import MVSNeRF
 from ..render.renderer import gen_dir_feature, gen_pts_feats, \
-    network_input, render_image_chunked, render_rays, sample_rays
-from ..render.tiled import bake_color_volume, cached_tiled_renderer
+    network_input, render_density, render_image_chunked, render_rays, \
+    sample_rays
+from ..render.tiled import cached_tiled_renderer, color_feature_volume
 from ..utils.schedulers import make_lr_schedule
 from .common import Prefetcher, RayBatchIterator, unpreprocess_images
 
@@ -65,15 +72,12 @@ def frustum_point_volume(h, w, d, pad, near_far, intrinsic_s4, c2w):
     return pts.reshape(d, h + 2 * pad, w + 2 * pad, 3)
 
 
+# steps between refreshes of the density volume, and the offset of
+# validation from them (JAX finetune.py:245, 266)
+DENSITY_EVERY, VAL_PHASE = 200, 100
+
+
 def _refuse_unported(args):
-    for flag, what in (
-            ("use_density_volume", "the density volume (ray_marcher_fine, "
-             "sample_pdf, render_density, the 200-step refresh)"),
-            ("use_disp", "sampling linear in disparity")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported yet")
-    if args.N_importance > 0:
-        raise NotImplementedError("--N_importance > 0 is not ported yet")
     if args.net_type != "v0" or args.netdepth != 6 or args.netwidth != 128:
         raise NotImplementedError(
             f"only the v0 MLP at D=6, W=128 is ported, got --net_type "
@@ -141,16 +145,25 @@ class FinetuneSystem:
         self.pose_source = {k: self._tensor(v)
                             for k, v in pose_source.items()}
         self.imgs = unpreprocess_images(self.imgs_norm).contiguous()
+        args = self.args
         if ckpt_volume is not None:
             volume = ckpt_volume.to(self.device, torch.float32)
         else:
             with torch.no_grad():
                 volume, _ = self.mvsnet(self.imgs_norm,
                                         self._tensor(proj_mats),
-                                        self.near_far, pad=self.args.pad)
-        if self.args.use_color_volume and volume.shape[-1] == 8:
-            volume = bake_color_volume(volume, self.imgs, self.pose_source,
-                                       self.near_far, self.args.pad)
+                                        self.near_far, pad=args.pad,
+                                        lindisp=args.use_disp)
+        # the voxel centres and their colours (JAX finetune.py:113-130): the
+        # colour volume's 12 channels, and the density refresh's points and
+        # features
+        self.density_volume = self.vox_pts = self.color_feature = None
+        if args.use_color_volume or args.use_density_volume:
+            self.vox_pts, self.color_feature = color_feature_volume(
+                volume.shape, self.imgs, self.pose_source, self.near_far,
+                args.pad)
+        if args.use_color_volume and volume.shape[-1] == 8:
+            volume = torch.cat([volume, self.color_feature], -1)
         self.volume = torch.nn.Parameter(volume.detach().clone()
                                          .contiguous())
 
@@ -177,12 +190,16 @@ class FinetuneSystem:
 
     def _samples(self, rays, generator):
         """(pts, rays_d, z_vals, pts_ndc) of a (N, 8) ray batch, the depth
-        jitter drawn from `generator`."""
+        jitter drawn from `generator`, then, with a density volume and
+        `--N_importance`, the importance samples' uniforms."""
+        args = self.args
         return sample_rays(
-            rays, self.args.N_samples, self.pose_source["w2cs"][0],
+            rays, args.N_samples, self.pose_source["w2cs"][0],
             self.pose_source["intrinsics"][0], self.imgs.shape[1:3],
-            self.near_far, self.args.pad, perturb=self.args.perturb,
-            generator=generator)
+            self.near_far, args.pad, perturb=args.perturb,
+            generator=generator, lindisp=args.use_disp,
+            density_volume=self.density_volume,
+            n_importance=args.N_importance)
 
     def render_rays(self, rays, training: bool, generator=None,
                     twins: bool = False):
@@ -210,6 +227,22 @@ class FinetuneSystem:
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         return network_input(pts_ndc, gen_dir_feature(w2cs[0], unit), feats)
 
+    @torch.no_grad()
+    def update_density_volume(self):
+        """Bake the MLP's density at the voxel centres into
+        `self.density_volume`, (D, hp, wp, 1) (JAX finetune.py:208-220,
+        reference finetuning:91-99). The features are the volume's,
+        joined to the baked colours when it has 8 channels. The points are
+        the WORLD voxel centres, where the render feeds NDC: the
+        reference's quirk, kept (ROADMAP.md)."""
+        vol = self.volume.detach()
+        d, hp, wp, c = vol.shape
+        if c == 8:
+            vol = torch.cat([vol, self.color_feature], -1)
+        sigma = render_density(self.mlp, self.vox_pts.reshape(-1, 3),
+                               vol.reshape(d * hp * wp, -1))
+        self.density_volume = sigma.reshape(d, hp, wp, 1)
+
     def _step(self, rays, rgbs, generator=None, twins: bool = False):
         """One step on a (N, 8) ray batch and its (N, 3) colours: MSE, its
         gradients, an Adam update and a schedule tick. Returns the loss as
@@ -230,10 +263,14 @@ class FinetuneSystem:
         """Train for steps [start_step, num_steps) (JAX
         finetune.py:229-277): batches from `RayBatchIterator(seed)`, depth
         jitter from a generator on the device seeded from (seed, step).
-        Every `val_every` steps a held-out view is rendered and its PSNR
-        logged; snapshots every 5000 steps and at the end when `ckpt_dir`
-        is given. Returns the losses as floats."""
+        With `--use_density_volume` the density volume is baked again
+        before every step that is a multiple of DENSITY_EVERY. Every
+        `val_every` steps (offset by VAL_PHASE with the density volume) a
+        held-out view is rendered and its PSNR logged; snapshots every 5000
+        steps and at the end when `ckpt_dir` is given. Returns the losses
+        as floats."""
         args = self.args
+        val_phase = VAL_PHASE if args.use_density_volume else 0
         it = Prefetcher(RayBatchIterator(
             {"rays": self.train_dataset.all_rays,
              "rgbs": self.train_dataset.all_rgbs}, args.batch_size,
@@ -242,6 +279,8 @@ class FinetuneSystem:
         losses = []
         try:
             for step_i in range(start_step, num_steps):
+                if args.use_density_volume and step_i % DENSITY_EVERY == 0:
+                    self.update_density_volume()
                 batch = next(it)
                 gen.manual_seed(seed * 2 ** 32 + step_i)
                 # non-blocking: the host stages the batch and goes on
@@ -256,7 +295,8 @@ class FinetuneSystem:
                         "train/loss": mse,
                         "train/PSNR": -10 * math.log10(max(mse, 1e-10))})
                 if val_every and logger is not None and \
-                        step_i > start_step and step_i % val_every == 0:
+                        step_i > start_step and \
+                        (step_i - val_phase) % val_every == 0:
                     self.validate(step_i, logger)
                 if ckpt_dir and (step_i + 1) % 5000 == 0:
                     self.save(ckpt_dir, step_i + 1)
@@ -290,20 +330,26 @@ class FinetuneSystem:
         volume.
 
         With `--render_mode tiled` the colour-baked volume goes through K6b
-        (render/tiled.py), at unjittered depths; the bake is cached until
-        the volume changes, or is the volume itself with
-        `--use_color_volume`. Otherwise chunk by chunk: the K5 fetch (and
-        K4 colours), then K8 for PE, MLP and compositing, with depths
-        jittered as in training by a generator seeded 0 (the JAX trainer
-        renders with PRNGKey(0))."""
+        (render/tiled.py), at unjittered depths (and importance depths
+        drawn from a generator seeded 1); the bake is cached until the
+        volume or the density volume changes, joins the colours baked at
+        set-up, or is the volume itself with `--use_color_volume`.
+        Otherwise chunk by chunk: the K5 fetch (and K4 colours), then K8
+        for PE, MLP and compositing, with depths jittered as in training
+        and importance depths drawn after them, all from one generator
+        seeded 0 (the JAX trainer renders with PRNGKey(0) and its
+        fold_in(1))."""
+        args = self.args
         rays = torch.as_tensor(np.asarray(rays, np.float32),
                                device=self.device)
-        if self.args.render_mode == "tiled":
+        if args.render_mode == "tiled":
             fn = cached_tiled_renderer(
                 self, self.volume, self.imgs, self.near_far,
-                self.pose_source, n_samples=self.args.N_samples,
-                pad=self.args.pad, white_bkgd=self.args.white_bkgd,
-                chunk=chunk)
+                self.pose_source, n_samples=args.N_samples, pad=args.pad,
+                white_bkgd=args.white_bkgd, chunk=chunk,
+                lindisp=args.use_disp, density_volume=self.density_volume,
+                n_importance=args.N_importance,
+                color_feature=self.color_feature)
             # rays render one by one: a (1, N) "image" is the whole buffer
             return fn(rays, 1, rays.shape[0])
         gen = torch.Generator(device=self.device).manual_seed(0)

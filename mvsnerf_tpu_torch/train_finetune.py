@@ -12,7 +12,9 @@ Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 snapshots under `runs_fine_tuning/<expname>/ckpts/`, and resumes from the
 newest of them by default. `--use_color_volume` trains the colour-baked
 20-channel volume; `--render_mode tiled` renders the validation views
-through K6b. SSIM and the image panels of validation are not ported yet
+through K6b; `--use_density_volume --N_importance N` adds N importance
+samples a ray drawn from a density volume baked every 200 steps;
+`--use_disp` samples linearly in disparity. SSIM and the image panels of validation are not ported yet
 (`evaluate.py` has both).
 """
 

@@ -347,9 +347,7 @@ def test_reference_checkpoint_volume_loads(case, tmp_path):
                                   case["volume"])
 
 
-@pytest.mark.parametrize("extra", [
-    "--use_density_volume", "--N_importance 8", "--use_disp",
-    "--net_type v2"])
+@pytest.mark.parametrize("extra", ["--net_type v2"])
 def test_unported_options_are_refused(case, extra):
     with pytest.raises(NotImplementedError):
         _port_system(case, extra)
