@@ -8,8 +8,9 @@ from a seed, with seeded random weights: no-finetune inference, the
 per-scene fine-tune step and the generalizable training step, the last
 also with the U-Net on the hand-written K10 kernels (`--costreg_impl
 dband`), the colour-baked volume with the eval and video entry points,
-the render's gradient in its source images (K4's backward), and the
-density volume with importance sampling and `--use_disp`.
+the render's gradient in its source images (K4's backward), the
+density volume with importance sampling and `--use_disp`, and the fusion
+trainer.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -135,7 +136,28 @@ density volume with importance sampling and `--use_disp`.
      640x512 `render_image` in the `tiled` and one in the `chunked` mode
      with the density volume: finite, K6b / K8 launched; (f) one step
      with `--use_disp` (MVSNet's planes, the samples and NDC linear in
-     disparity) on the kernels against the twins.
+     disparity) on the kernels against the twins;
+ 12. fusion, on an in-memory scene of 16 random 640x512 views in an arc
+     (their cameras, `pair_idx`, the DTU box): `FusionFinetuneSystem`
+     fuses each view's local volume (MVSNet over its 3 nearest views, its
+     rays at 160x128 with 128 samples through K4 and K8 with alpha, K5's
+     splat of 24 channels) into the (128, 128, 128, 20) grid. (c) the
+     first 2 views fused on the kernels against the twins (TOL_FUSE /
+     FUSE_FLOOR), then `fuse_local_volumes` over all 16 views with its
+     launch counters reset just before, timed with events (fuse ms) with
+     its share per stage (MVSNet, local render, splat); (d) one step on
+     the kernels against one on the twins, 36 steps of `fit` timed over
+     the last 30 (K5 and K7 must launch), one step with `--N_importance
+     64` against the twins; (e) one 640x512 `render_image` in the tiled
+     mode (K6b in box coordinates) and one in the chunked mode (K5 + K8)
+     at perturb 0, against each other, then 3 `render_video` frames; (a)
+     K8 with alpha on one local-render chunk and (b) the fuse's masked K5
+     splat on one view's 24-channel values against their twins, with the
+     samples JAX's rule dropped and the splat's merge counters, K5 over
+     the fused volume and K6b in box coordinates, with event and device
+     times; (f) the fuse on `--costreg_impl dband`, timed, and its first 2
+     views under `torch.profiler`: K10's launches, no library convolution
+     or GEMM in their U-Nets, and the fuse against the cuDNN one.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -234,6 +256,24 @@ CONV_LIBRARY_NAMES = ("conv", "fprop", "dgrad", "wgrad", "implicit",
 # 128 and the PE's sines differ by ~1e-6 of their size, so TOL_DENSITY x
 # (1 + max|sigma|) leaves a tenfold margin
 N_IMPORTANCE, DENSITY_HELD, TOL_DENSITY = 64, 65536, 1e-5
+# phase 12, fusion: 16 training views fused into the (128, 128, 128, 20)
+# volume in the DTU box; the first FUSE_HELD views also fused on the twins.
+# The kernels' fuse against the twins': each accumulator channel within
+# TOL_FUSE x max|twin| of that channel (K8 and MVSNet's K1 differ from
+# their twins by float32 sums in other orders, the splat's atomics add in
+# an order that changes from run to run); the normalised volume and
+# density, acc / (weight + 1e-6), divide those differences by the weight,
+# so they are held to TOL_FUSE x (1 + max|twin|) only where the weight
+# exceeds FUSE_FLOOR (one sample's whole trilinear weight) and the voxels
+# below it are counted. The tiled and chunked renders agree to TOL_MODES.
+FUSE_VIEWS, FUSE_HELD, TOL_FUSE, FUSE_FLOOR = 16, 2, 1e-3, 1.0
+# the seeded MLP's density bias is -0.012 and its density hardly depends
+# on small features: on the fused volume, whose features are the local
+# renders' times their weights (|f| < 0.2 here), its ReLU is dead at every
+# sample and every gradient of the step is zero. Phase 12 sets that bias to
+# +0.05, one standard deviation of its draw, so that the step has gradients
+FUSE_SIGMA_BIAS = 0.05
+FUSE_BOX = ((-1.0, -1.0, 2.2), (1.0, 1.0, 4.2))  # data/dtu_ft.py's DTU box
 
 
 def require(cond, msg):
@@ -348,7 +388,7 @@ def grad_only(forward, inputs, g):
 def max_err(a, b):
     if isinstance(a, dict):
         return max(max_err(a[k], b[k]) for k in a)
-    return float((a - b).abs().max())
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 # the H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W):
@@ -694,7 +734,9 @@ def step_parity(phase, system, rays, rgbs, gen, failures):
     state0 = copy.deepcopy(system.state(0))
     after = {}
     for twins in (False, True):
-        system.load_state(state0)
+        # a copy each time: Adam's loaded moments are the state dict's own
+        # tensors, which its step then updates in place
+        system.load_state(copy.deepcopy(state0))
         gen.manual_seed(SEED + 1)
         loss = float(system._step(rays, rgbs, gen, twins=twins))
         after[twins] = dict(
@@ -706,7 +748,7 @@ def step_parity(phase, system, rays, rgbs, gen, failures):
                              for p in system.mlp.parameters()]))
     # samples within KINK of a ReLU kink may take either side of it in
     # float32; the voxels they reach are left out of the gradient check
-    system.load_state(state0)
+    system.load_state(copy.deepcopy(state0))
     gen.manual_seed(SEED + 1)
     x = system.mlp_input(rays, gen)
     kink = (k7.relu_margin(system.mlp, x) <= KINK).float()
@@ -715,6 +757,9 @@ def step_parity(phase, system, rays, rgbs, gen, failures):
         .expand(-1, -1, system.volume.shape[-1]).contiguous(),
         x[..., :3].contiguous(), system.volume) != 0
     k, p = after[False], after[True]
+    check(all(float(p[f"g_{n}"].abs().max()) > 0 for n in ("volume", "mlp")),
+          f"[{phase}] the step has no gradient in the volume or the MLP",
+          failures)
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     g_tol = {n: TOL_STEP_GRAD * float(p[f"g_{n}"].abs().max())
              for n in ("volume", "mlp")}
@@ -2617,6 +2662,492 @@ def density_phase(dev, mlp, mvsnet, failures, ft_step_ms):
     return kernels
 
 
+class FusionScene:
+    """In-memory fusion dataset on the bench rig: FUSE_VIEWS random 640x512
+    training views in an arc around the reference pose (pose(0, 0.02 k,
+    0.1 k)), their rays and pixels, their cameras (`load_poses_all`),
+    `pair_idx` (the training views from the centre of the arc outwards:
+    the fuse's first views, its reference among them, see the box
+    squarely), the DTU box and `read_source_views(pair_idx=...)`. The
+    principal point sits 0.37 / 0.29 pixel off the image centre: the fuse
+    renders each view's own rays at 1/4 resolution, and with it at the
+    centre their first row and column project back exactly onto the source
+    view's border, where the colours' in-image mask flips on one ulp
+    between two float32 routes."""
+
+    def __init__(self, rng, n_views=None):
+        from mvsnerf_tpu_torch.data.dtu_ft import rays_for_pose
+        n_views = n_views or FUSE_VIEWS
+        self.imgs = rng.uniform(0, 1, (n_views, H, W, 3)).astype(np.float32)
+        self.intr = np.array([[FOCAL, 0, W / 2 + 0.37],
+                              [0, FOCAL, H / 2 + 0.29], [0, 0, 1]],
+                             np.float32)
+        arc = np.arange(n_views) - n_views // 2
+        self.w2cs = np.stack([pose(0, 0.02 * k, 0.1 * k) for k in arc])
+        self.c2ws = np.linalg.inv(self.w2cs).astype(np.float32)
+        self.pair_idx = [np.argsort(np.abs(arc), kind="stable"),
+                         np.arange(1)]
+        self.focal = [FOCAL, FOCAL]
+        self.img_wh = (W, H)
+        self.near_far = list(NEAR_FAR)
+        self.bbox_3d = np.array(FUSE_BOX, np.float32)
+        self.all_rays = np.concatenate([
+            rays_for_pose(H, W, self.focal, self.intr[:2, 2], c2w, *NEAR_FAR)
+            for c2w in self.c2ws])
+        self.all_rgbs = self.imgs.reshape(-1, 3)
+
+    def load_poses_all(self):
+        return self.c2ws
+
+    def read_source_views(self, pair_idx=None):
+        idx = [int(i) for i in (pair_idx if pair_idx is not None
+                                else [0, 1, 2])]
+        mean = np.array([0.485, 0.456, 0.406], np.float32)
+        std = np.array([0.229, 0.224, 0.225], np.float32)
+        intr_s4 = self.intr.copy()
+        intr_s4[:2] /= 4
+        p4 = np.tile(np.eye(4, dtype=np.float32), (len(idx), 1, 1))
+        p4[:, :3] = intr_s4 @ self.w2cs[idx][:, :3]
+        projs = (p4 @ np.linalg.inv(p4[0]))[:, :3].astype(np.float32)
+        return ((self.imgs[idx] - mean) / std, projs, list(NEAR_FAR),
+                {"w2cs": self.w2cs[idx], "c2ws": self.c2ws[idx],
+                 "intrinsics": np.stack([self.intr] * len(idx))})
+
+
+def fusion_system(dev, mlp, mvsnet, scene, extra=""):
+    """`FusionFinetuneSystem` on `scene` from a reference-format checkpoint
+    of the seeded weights (the constructor fuses every view), at phase 6's
+    flags plus `extra`."""
+    import tempfile
+
+    import torch
+    from mvsnerf_tpu_torch.config import config_parser
+    from mvsnerf_tpu_torch.train.fusion import FusionFinetuneSystem
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "seeded.tar")
+        torch.save({"global_step": 0,
+                    "network_fn_state_dict": mlp.state_dict(),
+                    "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
+        args = config_parser(
+            f"--dataset_name dtu_ft --with_rgb_loss --pad {PAD} "
+            f"--batch_size {FT_BATCH} --N_samples {N_SAMPLES} --ckpt {ckpt} "
+            f"{extra}")
+        return FusionFinetuneSystem(args, scene, device=dev)
+
+
+def fuse_state(system):
+    """The fuse's accumulator, volume and density, copied."""
+    return (system.fuse_acc.clone(), system.volume.detach().clone(),
+            system.density_volume.clone())
+
+
+def fuse_compare(phase, what, ours, ref, failures):
+    """Hold a fuse's (accumulator, volume, density) to another's by the
+    TOL_FUSE / FUSE_FLOOR rules."""
+    from mvsnerf_tpu_torch.train.fusion import WEIGHT
+    acc, vol, dens = ours
+    acc_r, vol_r, dens_r = ref
+    used = slice(0, WEIGHT + 1)  # the channels after it are padding
+    scale = acc_r[..., used].abs().amax(dim=(0, 1, 2))
+    acc_err = float(((acc[..., used] - acc_r[..., used]).abs()
+                     .amax(dim=(0, 1, 2)) / scale.clamp(min=1e-30)).max())
+    firm = acc_r[..., WEIGHT] > FUSE_FLOOR
+    require(bool(firm.any()), f"[{phase}] {what}: no voxel above the "
+            "weight floor")
+    v_err = max_err(vol[firm], vol_r[firm]) / (1 + float(vol_r.abs().max()))
+    d_err = max_err(dens[firm], dens_r[firm]) / (1 + float(
+        dens_r.abs().max()))
+    print(f"[{phase} fuse] {what}: accumulators max err / channel max "
+          f"{acc_err:.2e}; normalised volume {v_err:.2e}, density "
+          f"{d_err:.2e} x (1 + max) over {int(firm.sum())} voxels, "
+          f"{int((~firm).sum())} below the weight floor {FUSE_FLOOR} left "
+          f"out (tol {TOL_FUSE:.0e})")
+    check(max(acc_err, v_err, d_err) <= TOL_FUSE and
+          float(firm.float().mean()) > 0.01,
+          f"[{phase}] {what}: the fuses disagree", failures)
+
+
+@contextlib.contextmanager
+def first_call(module, name, calls):
+    """`module.name` wrapped inside the block so that its first call's
+    arguments land in `calls`."""
+    fn = getattr(module, name)
+
+    def spy(*a, **k):
+        if not calls:
+            calls.append((a, k))
+        return fn(*a, **k)
+
+    with swapped(module, name, spy):
+        yield
+
+
+# kernel groups of the fuse's profile, by name fragment (MVSNet: FeatureNet
+# and the U-Net on cuDNN, K1; its batch norms and the rest fall in "rest")
+FUSE_GROUPS = {
+    "MVSNet on cuDNN (convolutions, norms)": (
+        "conv", "fprop", "dgrad", "implicit", "winograd", "cudnn"),
+    "K1": ("sweep_kernel", "sweep_pack"), "K4": ("color_warp_kernel",),
+    "K8": ("render_v0_kernel",), "K5 splat": ("splat_kernel",),
+    "the local volume's fetch (grid_sample)": ("grid_sampler_3d",)}
+
+
+def fuse_profile(system):
+    """`torch.profiler` over one fuse of every view: the device's busy share
+    of its wall time and its time by kernel group (FUSE_GROUPS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.fuse_local_volumes(CHUNK)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    shares = dict.fromkeys([*FUSE_GROUPS, "rest"], 0.0)
+    for name, ms in by_name.items():
+        shares[next((g for g, keys in FUSE_GROUPS.items()
+                     if any(k in name.lower() for k in keys)), "rest")] += ms
+    print(f"[12 profile] one fuse: device busy {busy:.1f} of {wall_ms:.1f} ms "
+          f"wall ({busy / wall_ms:.1%}); " + ", ".join(
+              f"{g} {ms:.1f}" for g, ms in shares.items()))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"   {ms:8.2f} ms  {name[:100]}")
+
+
+def fusion_phase(dev, mlp, mvsnet, failures):
+    """Phase 12; returns its entries of the kernels line."""
+    import torch
+    from mvsnerf_tpu_torch.eval.video import render_video
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume
+    from mvsnerf_tpu_torch.render import renderer
+    from mvsnerf_tpu_torch.render.renderer import gen_dir_feature, \
+        sample_rays
+    from mvsnerf_tpu_torch.train import fusion
+    from torch.profiler import ProfilerActivity, profile
+    src6 = "mvsnerf_tpu_torch/csrc/render_v0.cu"
+    src5 = "mvsnerf_tpu_torch/csrc/volume_gather.cu"
+    sfx = " 128³x20"
+    mlp = copy.deepcopy(mlp)
+    with torch.no_grad():
+        mlp.nerf.alpha_linear.bias.fill_(FUSE_SIGMA_BIAS)
+
+    t0 = time.perf_counter()
+    scene = FusionScene(np.random.default_rng(SEED + 12))
+    system = fusion_system(dev, mlp, mvsnet, scene)
+    vol = system.volume
+    require(tuple(vol.shape) == (*fusion.FusionFinetuneSystem.VOLUME_DIM,
+                                 20) and
+            bool(torch.isfinite(vol).all()) and
+            bool(torch.isfinite(system.density_volume).all()),
+            f"fused volume {tuple(vol.shape)} not finite or not "
+            "(128, 128, 128, 20)")
+    covered = float((system.fuse_acc[..., fusion.WEIGHT] > FUSE_FLOOR)
+                    .float().mean())
+    print(f"[12 fusion] {FUSE_VIEWS} views of {H}x{W}, local renders "
+          f"{W // 4}x{H // 4} x {fusion.FUSE_SAMPLES} samples, fused volume "
+          f"{tuple(vol.shape)}; set up (the first fuse) in "
+          f"{time.perf_counter() - t0:.1f} s; weight > {FUSE_FLOOR} at "
+          f"{covered:.3f} of the voxels")
+
+    # ---- (c) the first FUSE_HELD views on the kernels and on the twins;
+    # the kernels' run also keeps one K8 chunk's and view 0's splat inputs
+    # (spied where their callers look the kernels up, so that the wrappers'
+    # own launch counters stay theirs)
+    k8_calls, splat_calls = [], []
+    with first_call(renderer, "render_v0_feats", k8_calls), \
+            first_call(fusion, "volume_splat_kernel", splat_calls):
+        system.fuse_local_volumes(CHUNK, n_views=FUSE_HELD)
+    held = fuse_state(system)
+    with twin_routes(True):
+        system.fuse_local_volumes(CHUNK, n_views=FUSE_HELD, twins=True)
+    fuse_compare(12, f"the first {FUSE_HELD} views, kernels against twins",
+                 held, fuse_state(system), failures)
+
+    # ---- (c) the main path: the fuse of every view, launch counters reset
+    # just before, timed with events, its stages too
+    wrappers = {"K1": (sweep_cost_volume, "launches"),
+                "K4": (color_warp, "launches"),
+                "K8 alpha": (rf.render_v0_feats, "launches"),
+                "K5 splat": (fusion.splat_trilinear, "launches")}
+    stages = {"_local_volume": [], "_local_render_chunk": [],
+              "_splat_view": []}
+
+    def timed(name):
+        fn = getattr(system, name)
+
+        def call(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            stages[name].append(ev)
+            return out
+        return call
+
+    fuse_ms = []
+    for rep in range(2):
+        for fn, attr in wrappers.values():
+            setattr(fn, attr, 0)
+        for name in stages:
+            stages[name] = []
+            setattr(system, name, timed(name))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        system.fuse_local_volumes(CHUNK)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for name in stages:
+            delattr(system, name)
+        fuse_ms.append(ev[0].elapsed_time(ev[1]))
+        stage_ms = {name: sum(a.elapsed_time(b) for a, b in evs)
+                    for name, evs in stages.items()}
+        fuse_launches = {k: getattr(fn, attr)
+                         for k, (fn, attr) in wrappers.items()}
+        print(f"[12 fuse] fuse_local_volumes over {FUSE_VIEWS} views, run "
+              f"{rep + 1}: fuse ms {fuse_ms[-1]:.1f} (events; host clock "
+              f"{wall:.1f}); MVSNet {stage_ms['_local_volume']:.1f} ms "
+              f"({stage_ms['_local_volume'] / fuse_ms[-1]:.1%}), local "
+              f"render {stage_ms['_local_render_chunk']:.1f} "
+              f"({stage_ms['_local_render_chunk'] / fuse_ms[-1]:.1%}), splat "
+              f"{stage_ms['_splat_view']:.1f} "
+              f"({stage_ms['_splat_view'] / fuse_ms[-1]:.1%}); launches "
+              f"{fuse_launches}")
+    for name, n in fuse_launches.items():
+        check(n > 0, f"{name} never launched in the phase 12 fuse", failures)
+    require(bool(torch.isfinite(system.volume).all()),
+            "non-finite fused volume")
+
+    # ---- (d) one step on the kernels against one on the twins, then the
+    # main path: fit, launch counters reset just before
+    rays, rgbs = first_batch(scene, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    plain_step_ms = step_parity(12, system, rays, rgbs, gen, failures)
+    counters = {**k5_counters(sfx),
+                "K7 mlp_v0 (fwd)": (k7.mlp_v0_train, "launches"),
+                "K7 mlp_v0 (bwd)": (k7.mlp_v0_train, "bwd_launches")}
+    fit_launches, step_ms = timed_fit(12, system, counters, plain_step_ms,
+                                      failures)
+    with swapped(system.args, "N_importance", N_IMPORTANCE):
+        gen.manual_seed(SEED)
+        with torch.no_grad():
+            s_all = system._samples(rays, gen)[2].shape[1]
+        require(s_all == N_SAMPLES + N_IMPORTANCE,
+                f"the importance step's samples: {s_all}")
+        step_parity(f"12 N_importance={N_IMPORTANCE}", system, rays, rgbs,
+                    gen, failures)
+
+    # ---- (e) one 640x512 render_image per mode at perturb 0, launch
+    # counters reset just before each; then 3 video frames
+    rays_img = rays_for_pose(pose(0, 0.01, 0.05), scene.intr, H, W,
+                             dev).cpu().numpy()
+    outs, render_launches = {}, {}
+    for mode, counted in (
+            ("tiled", {"K6b": (rf.render_v0, "baked_launches")}),
+            ("chunked", {"K8": (rf.render_v0_feats, "launches"),
+                         "K5 fwd": (k5.sample_volume, "launches")})):
+        for fn, attr in counted.values():
+            setattr(fn, attr, 0)
+        with swapped(system.args, "render_mode", mode), \
+                swapped(system.args, "perturb", 0.0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = system.render_image(rays_img, chunk=CHUNK)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = {k: getattr(fn, attr) for k, (fn, attr) in counted.items()}
+        render_launches[mode] = n
+        ok = all(tuple(out[k].shape[:1]) == (H * W,) and
+                 bool(torch.isfinite(out[k]).all()) for k in ("rgb", "depth"))
+        print(f"[12 render] render_image {mode}: {H}x{W} rays in {ms:.1f} ms "
+              f"(request ms; from host rays), launches {n}, finite {ok}")
+        check(ok and all(n.values()), f"[12] the {mode} render is not finite "
+              "or never launched its kernels", failures)
+        outs[mode] = out
+    worst = max_err(outs["tiled"]["rgb"], outs["chunked"]["rgb"])
+    acc_mean = float(outs["tiled"]["acc"].mean())
+    print(f"[12 render] tiled vs chunked rgb max abs diff {worst:.3e} (tol "
+          f"{TOL_MODES:.0e}); acc mean {acc_mean:.4f}")
+    check(worst <= TOL_MODES, "[12] the tiled and chunked fusion renders "
+          "disagree", failures)
+    del outs
+    rf.render_v0.baked_launches = 0
+    with swapped(system.args, "render_mode", "tiled"):
+        t0 = time.perf_counter()
+        frames = render_video(system, scene.c2ws[:VIDEO_FRAMES], H, W,
+                              scene.focal, NEAR_FAR, chunk=CHUNK)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    print(f"[12 video] {len(frames)} frames of {H}x{W} in the tiled mode, "
+          f"{ms:.1f} ms/frame, K6b launches {rf.render_v0.baked_launches}")
+    check(len(frames) == VIDEO_FRAMES and
+          all(f.shape == (H, W, 3) for f in frames) and
+          rf.render_v0.baked_launches > 0,
+          "[12] render_video's frames are wrong or K6b never ran", failures)
+
+    # ---- (a), (b) and the step's kernels against their twins, after the
+    # timed runs (torch.profiler can slow later launches on the host)
+    kernels = []
+    with torch.no_grad():
+        # render_rays' call: (ndc, feats, dirs, z, mlp, with_alpha)
+        f_args = k8_calls[0][0][:5]
+        ndc, feats, dirs, z, m = f_args
+        f_k = rf.render_v0_feats(*f_args, with_alpha=True)
+        f_p = rf.render_v0_feats_plain(*f_args, with_alpha=True)
+        mlp64 = copy.deepcopy(m).double()
+        kernel_entry(kernels, "K8 render_v0_feats alpha", src6,
+                     "mvsnerf_tpu/ops/pallas_kernels.py:196",
+                     max_err(f_k, f_p), TOL_K6,
+                     lambda: rf.render_v0_feats(*f_args, with_alpha=True),
+                     lambda: rf.render_v0_feats_plain(*f_args, True), None,
+                     nbytes(ndc, feats, dirs, z, *f_k.values()),
+                     mlp_flops(ndc[..., 0].numel()), RENDER_TC_PASSES,
+                     alpha_max_abs_err=max_err(f_k["alpha"], f_p["alpha"]),
+                     **f64_anchor(f_k, f_p, lambda: rf.render_v0_feats_plain(
+                         *(a.double() for a in f_args[:4]), mlp64)))
+        print(f"   K8 alpha chunk: {tuple(ndc.shape[:2])} of view 0's local "
+              f"render; alpha err {kernels[-1]['alpha_max_abs_err']:.3e}, "
+              f"weights err {max_err(f_k['weights'], f_p['weights']):.3e}")
+        del k8_calls, f_args, f_k, f_p, feats
+
+        # `splat_trilinear`'s call of K5: (masked vals, pts_ndc, shape)
+        vals, ndc = splat_calls[0][0][:2]
+        ndc, shape = ndc.contiguous(), (*fusion.FusionFinetuneSystem
+                                        .VOLUME_DIM, fusion.SPLAT_CHANNELS)
+        keep = fusion.splat_keep(ndc, shape)
+        g = (vals * keep[..., None]).contiguous()
+        adds = torch.zeros(2, dtype=torch.int64, device=dev)
+        k5.volume_splat_kernel(g, ndc, shape, adds=adds)
+        rule = k5.splat_merges(ndc, shape)[1]
+        n_add, n_merged = adds.tolist()
+        print(f"   K5 fuse splat: {ndc[..., 0].numel()} samples of view 0, "
+              f"{int((~keep).sum())} dropped by JAX's rule (rows zeroed); "
+              f"{n_merged} of {n_add + n_merged} corner adds "
+              f"({n_merged / max(1, n_add + n_merged):.2%}) merged, {n_add} "
+              f"atomics; the rule counts {rule}")
+        check((n_add, n_merged) == rule, "the fuse splat merged other "
+              "corners than its rule", failures)
+        a_k = fusion.splat_trilinear(torch.zeros(shape, device=dev), ndc,
+                                     vals)
+        a_p = fusion.splat_trilinear_plain(torch.zeros(shape, device=dev),
+                                           ndc, vals)
+        acc_k, acc_p = torch.zeros(shape, device=dev), \
+            torch.zeros(shape, device=dev)
+        vol5 = torch.zeros((1, shape[-1], *shape[:3]), device=dev)
+        g5 = g.reshape(-1, shape[-1]).t().reshape(1, shape[-1], -1, 1, 1) \
+            .contiguous()
+        grid5 = (ndc * 2 - 1).reshape(1, -1, 1, 1, 3)
+        kernel_entry(kernels, "K5 volume_splat fuse C=24", src5,
+                     "mvsnerf_tpu/ops/pallas_volgather2.py:268",
+                     max_err(a_k, a_p), TOL_K5 * (1 + float(a_p.abs().max())),
+                     lambda: fusion.splat_trilinear(acc_k, ndc, vals),
+                     lambda: fusion.splat_trilinear_plain(acc_p, ndc, vals),
+                     lambda: torch.ops.aten.grid_sampler_3d_backward(
+                         g5, vol5, grid5, 0, 0, True, [True, False]),
+                     nbytes(vals, ndc) + 2 * touched_volume_bytes(a_p, ndc),
+                     ndc[..., 0].numel() * (30 + 8 * shape[-1] * 2),
+                     dropped=int((~keep).sum()))
+        del splat_calls, vals, g, g5, vol5, a_k, a_p, acc_k, acc_p, keep
+
+        gen.manual_seed(SEED)
+        ndc = system._samples(rays, gen)[3].contiguous()
+        k5_entries(kernels, system.volume.detach(), ndc, gen, failures, sfx)
+        chunk = torch.from_numpy(rays_img[:CHUNK]).to(dev)
+        _, rays_d, z, ndc = sample_rays(chunk, N_SAMPLES, None, None, None,
+                                        None, None, bbox=system.bbox)
+        unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        dirs = gen_dir_feature(system.pose_source["w2cs"][0], unit)
+        vol20 = system.volume.detach().contiguous()
+        b_args = (ndc.contiguous(), z.contiguous(), None, dirs.contiguous(),
+                  vol20, m)
+        r_k, r_p = rf.render_v0(*b_args), rf.render_v0_plain(*b_args)
+        kernel_entry(kernels, "K6b render_v0 bbox (baked)", src6,
+                     "mvsnerf_tpu/ops/pallas_render_tiled.py:313",
+                     max_err(r_k, r_p), TOL_K6,
+                     lambda: rf.render_v0(*b_args),
+                     lambda: rf.render_v0_plain(*b_args), None,
+                     nbytes(*b_args[:2], b_args[3], *r_k.values()) +
+                     touched_volume_bytes(vol20, b_args[0]),
+                     mlp_flops(ndc[..., 0].numel()), RENDER_TC_PASSES,
+                     **f64_anchor(r_k, r_p, lambda: rf.render_v0_plain(
+                         b_args[0].double(), b_args[1].double(), None,
+                         b_args[3].double(), vol20.double(), mlp64)))
+        print(f"   K6b bbox chunk: {CHUNK} x {N_SAMPLES} samples in the box, "
+              f"acc mean {float(r_p['acc'].mean()):.4f}")
+        del b_args, r_k, r_p, vol20, mlp64
+    report(12, kernels, failures)
+    fuse_profile(system)
+    launches = {"K8 render_v0_feats alpha": fuse_launches["K8 alpha"],
+                "K5 volume_splat fuse C=24": fuse_launches["K5 splat"],
+                "K6b render_v0 bbox (baked)":
+                    render_launches["tiled"]["K6b"], **fit_launches}
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    acc_cudnn = held
+    del system
+    torch.cuda.empty_cache()
+
+    # ---- (f) --costreg_impl dband: the first FUSE_HELD views, K10's
+    # launches and no library convolution in their U-Nets
+    system = fusion_system(dev, mlp, mvsnet, scene, "--costreg_impl dband")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    system.fuse_local_volumes(CHUNK)
+    ev[1].record()
+    torch.cuda.synchronize()
+    dband_ms = ev[0].elapsed_time(ev[1])
+    print(f"[12 dband] fuse_local_volumes over {FUSE_VIEWS} views on "
+          f"--costreg_impl dband: fuse ms {dband_ms:.1f} (events)")
+    for key in k10.launches:
+        k10.launches[key] = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        system.fuse_local_volumes(CHUNK, n_views=FUSE_HELD)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    span = unet_spans(names)
+    stray = sorted({n for n in span if not is_k10(n) and (
+        any(f in n.lower() for f in CONV_LIBRARY_NAMES) or
+        "gemm" in n.lower())})
+    want = {k: FUSE_HELD * n for k, n in
+            {"s1": 4, "s2": 3, "up": 3, "wgrad": 0}.items()}
+    print(f"[12 dband] the first {FUSE_HELD} views' fuse on "
+          f"--costreg_impl dband: K10 launches {dict(k10.launches)} (want "
+          f"{want}); {len(span)} kernels in the U-Nets' spans, library "
+          f"convolutions or GEMMs among them: {stray}")
+    check(dict(k10.launches) == want and not stray and
+          any(is_k10(n) for n in span),
+          "[12] the dband fuse's U-Nets ran other than K10", failures)
+    fuse_compare("12 dband", f"the first {FUSE_HELD} views, dband against "
+                 "cuDNN", fuse_state(system), acc_cudnn, failures)
+    print(f"[12 summary] fuse ms {min(fuse_ms):.1f} on cuDNN's U-Net, "
+          f"{dband_ms:.1f} on dband; step {step_ms:.2f} ms, "
+          f"{FT_BATCH / step_ms * 1e3:.0f} rays/s")
+    del system, acc_cudnn, held
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2881,6 +3412,10 @@ def main():
     # ---- 11. the density volume and importance samples, and --use_disp
     torch.cuda.empty_cache()
     kernels += density_phase(dev, mlp, mvsnet, failures, ft_step_ms)
+
+    # ---- 12. fusion: the fuse of 16 views, its steps and renders
+    torch.cuda.empty_cache()
+    kernels += fusion_phase(dev, mlp, mvsnet, failures)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

@@ -50,9 +50,10 @@ SIGNATURES = {
     # WP, C, n_weights, n_tc, stream
     "render_v0": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _P],
-    # ndc, z, feats, dirs, weights, tc, out, wout, N, S, n_weights, n_tc,
-    # stream
-    "render_v0_feats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ndc, z, feats, dirs, weights, tc, out, wout, aout (or null), N, S,
+    # n_weights, n_tc, stream
+    "render_v0_feats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P],
     # -> bytes of dynamic shared memory the render body takes a block
     "render_v0_smem_bytes": [],
     # vol, ndc, out, n_samples, D, HP, WP, C, stream

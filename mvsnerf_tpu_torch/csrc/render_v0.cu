@@ -11,7 +11,9 @@
 //       (render/tiled.py:44 `bake_color_volume`);
 //   K8  <0, 20>  replaces mvsnerf_tpu/ops/pallas_kernels.py:196
 //       `fused_render_v0` (`_kernel_body` :155): all 20 features already
-//       gathered, no fetch; it also writes the (N, S) compositing weights.
+//       gathered, no fetch; it also writes the (N, S) compositing weights
+//       and, when asked (the fusion trainer's local renders), the (N, S)
+//       alphas.
 //
 // Per ray, front to back over S samples:
 //   - the trilinear zeros-padded fetch of NV channels from the
@@ -170,10 +172,12 @@ __device__ __forceinline__ void store_hidden(const float (&acc)[4][4][4],
 
 // Composite rows [first, first + len) of the tile front to back, one warp:
 // lane l takes a run of consecutive samples; T_in and the sums carry in
-// (S > 128) and out. K8 writes each sample's weight to wout[gbase + row].
+// (S > 128) and out. K8 writes each sample's weight to wout[gbase + row]
+// and, where aout is not null, its alpha to aout[gbase + row].
 template <bool WEIGHTS>
 __device__ __forceinline__ void composite(const Smem& sm, int first, int len,
                                           float* __restrict__ wout,
+                                          float* __restrict__ aout,
                                           long long gbase, float& T,
                                           float (&sum)[5]) {
   constexpr unsigned FULL = 0xffffffffu;
@@ -198,7 +202,10 @@ __device__ __forceinline__ void composite(const Smem& sm, int first, int len,
     const int row = first + s;
     const float alpha = 1.f - expf(-sm.sig[row]);
     const float wgt = alpha * tr;
-    if (WEIGHTS) wout[gbase + row] = wgt;
+    if (WEIGHTS) {
+      wout[gbase + row] = wgt;
+      if (aout != nullptr) aout[gbase + row] = alpha;
+    }
     tr *= fmaxf(1.f - alpha, 0.f) + 1e-10f;
     part[0] += wgt * sm.rgb[row][0];
     part[1] += wgt * sm.rgb[row][1];
@@ -225,8 +232,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const float* __restrict__ vol,
                      const float* __restrict__ wts,
                      const float* __restrict__ tc, float* __restrict__ out,
-                     float* __restrict__ wout, int N, int S, int D, int HP,
-                     int WP) {
+                     float* __restrict__ wout, float* __restrict__ aout,
+                     int N, int S, int D, int HP, int WP) {
   static_assert(NV + NC == NF && NV % 4 == 0 && NC % 4 == 0,
                 "the v0 MLP takes 20 feature channels, in float4s");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -405,7 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       float sum[5];
 #pragma unroll
       for (int i = 0; i < 5; ++i) sum[i] = whole ? 0.f : carry[i];
-      composite<WEIGHTS>(sm, whole ? rr * S : 0, len, wout, gbase, T, sum);
+      composite<WEIGHTS>(sm, whole ? rr * S : 0, len, wout, aout, gbase, T,
+                         sum);
       if (!whole) {
         carry_T = T;
 #pragma unroll
@@ -423,8 +431,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int NV, int NC, bool WEIGHTS>
 int launch(const float* ndc, const float* z, const float* feats,
            const float* dirs, const float* vol, const float* wts,
-           const float* tc, float* out, float* wout, int N, int S, int D,
-           int HP, int WP, cudaStream_t st) {
+           const float* tc, float* out, float* wout, float* aout, int N,
+           int S, int D, int HP, int WP, cudaStream_t st) {
   auto kernel = render_v0_kernel<NV, NC, WEIGHTS>;
   static bool ready = false;  // the shared-memory opt-in, once a form
   if (!ready) {
@@ -437,7 +445,7 @@ int launch(const float* ndc, const float* z, const float* feats,
   const int rpc = S <= ROWS ? ROWS / S : 1;
   const long long grid = ((long long)N + rpc - 1) / rpc;
   kernel<<<(unsigned)grid, THREADS, sizeof(Smem), st>>>(
-      ndc, z, feats, dirs, vol, wts, tc, out, wout, N, S, D, HP, WP);
+      ndc, z, feats, dirs, vol, wts, tc, out, wout, aout, N, S, D, HP, WP);
   return (int)cudaGetLastError();
 }
 
@@ -462,28 +470,30 @@ extern "C" int render_v0(const void* ndc, const void* z, const void* colors,
     return launch<8, 12, false>(
         (const float*)ndc, (const float*)z, (const float*)colors,
         (const float*)dirs, (const float*)vol, (const float*)weights,
-        (const float*)tc, (float*)out, nullptr, N, S, D, HP, WP, st);
+        (const float*)tc, (float*)out, nullptr, nullptr, N, S, D, HP, WP,
+        st);
   if (colors == nullptr && C == NF)
     return launch<NF, 0, false>(
         (const float*)ndc, (const float*)z, nullptr, (const float*)dirs,
         (const float*)vol, (const float*)weights, (const float*)tc,
-        (float*)out, nullptr, N, S, D, HP, WP, st);
+        (float*)out, nullptr, nullptr, N, S, D, HP, WP, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K8: the 20 features of every sample gathered already; out (N, 5) = rgb,
-// depth, acc and wout (N, S) the compositing weights
+// depth, acc, wout (N, S) the compositing weights and aout (N, S), or null,
+// the alphas
 extern "C" int render_v0_feats(const void* ndc, const void* z,
                                const void* feats, const void* dirs,
                                const void* weights, const void* tc,
-                               void* out, void* wout, int N, int S,
-                               int n_weights, int n_tc, void* stream) {
+                               void* out, void* wout, void* aout, int N,
+                               int S, int n_weights, int n_tc, void* stream) {
   if (!args_ok(n_weights, n_tc, N, S)) return (int)cudaErrorInvalidValue;
   return launch<0, NF, true>((const float*)ndc, (const float*)z,
                              (const float*)feats, (const float*)dirs, nullptr,
                              (const float*)weights, (const float*)tc,
-                             (float*)out, (float*)wout, N, S, 0, 0, 0,
-                             (cudaStream_t)stream);
+                             (float*)out, (float*)wout, (float*)aout, N, S, 0,
+                             0, 0, (cudaStream_t)stream);
 }
 
 // the body's dynamic shared memory a block, bytes (one block a SM)

@@ -73,13 +73,15 @@ def full_image_pixels(h: int, w: int, device=None):
 
 
 def get_ndc_coordinate(w2c_ref, intrinsic_ref, point_samples, inv_scale,
-                       near, far, pad: int = 0, lindisp: bool = False):
+                       near, far, pad: float = 0, lindisp: bool = False):
     """World points -> reference-view NDC in [0, 1].
 
     xy is the projected pixel coordinate normalised by (W-1, H-1); z is
     (depth - near) / (far - near). With `pad > 0`, xy is remapped into the
     padded feature grid of size ((dim+1)/4 + 2*pad), the reference's pad
-    correction (mvsnerf_tpu/ops/geometry.py:141-143).
+    correction (mvsnerf_tpu/ops/geometry.py:141-143). `pad` may be
+    fractional: the fusion trainer's quarter-scale local renders pass
+    pad / 4 with a quarter-scale `inv_scale`.
 
     Args:
         point_samples: (..., 3) world points.
@@ -101,3 +103,10 @@ def get_ndc_coordinate(w2c_ref, intrinsic_ref, point_samples, inv_scale,
         wh_feat = (inv_scale + 1.0) / 4.0
         xy = xy * wh_feat / (wh_feat + pad * 2) + pad / (wh_feat + pad * 2)
     return torch.cat([xy, z[:, None]], dim=-1).reshape(shape)
+
+
+def get_ndc_coordinate_bbox(bbox_min, bbox_max, point_samples):
+    """The bounding-box normalisation of world points, (p - min) / (max -
+    min), the fusion trainer's volume coordinates
+    (mvsnerf_tpu/ops/geometry.py:148, reference utils.py:134-137)."""
+    return (point_samples - bbox_min) / (bbox_max - bbox_min)

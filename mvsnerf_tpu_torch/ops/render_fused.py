@@ -4,7 +4,8 @@
 colour channels of K4 are given with an 8-channel volume (the hybrid
 mode), K6b when `colors` is None and the volume is the colour-baked
 20-channel one (the `tiled` mode). `render_v0_feats` (K8) renders rays
-whose 20 features are gathered already (the chunked mode). All three
+whose 20 features are gathered already (the chunked mode, and the fusion
+trainer's local renders, which also ask it for each sample's alpha). All three
 launch one kernel body of csrc/render_v0.cu for CUDA tensors and run
 their plain PyTorch twins (`render_v0_plain`, `render_v0_feats_plain`) for
 CPU tensors; any other device raises.
@@ -203,13 +204,16 @@ def pack_v0_weights(mlp):
     return torch.cat(parts).float().contiguous()
 
 
-def render_v0_feats_plain(pts_ndc, feats, dirs, z_vals, mlp):
+def render_v0_feats_plain(pts_ndc, feats, dirs, z_vals, mlp,
+                          with_alpha: bool = False):
     """Plain PyTorch twin of K8; same arguments and result as
     `render_v0_feats`."""
     views = dirs[:, None].expand(-1, pts_ndc.shape[1], -1)
     x = torch.cat([positional_encoding(pts_ndc, 10), feats, views], dim=-1)
     out = raw2outputs(mlp(x), z_vals)
-    return {k: out[k] for k in ("rgb", "depth", "acc", "weights")}
+    keys = ("rgb", "depth", "acc", "weights") + (("alpha",) if with_alpha
+                                                 else ())
+    return {k: out[k] for k in keys}
 
 
 def render_v0_plain(pts_ndc, z_vals, colors, dirs, volume, mlp):
@@ -311,9 +315,10 @@ render_v0.launches = 0         # K6: hybrid (colours streamed in)
 render_v0.baked_launches = 0   # K6b: the colour-baked volume
 
 
-def render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp):
+def render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp,
+                           with_alpha: bool = False):
     """`render_v0_feats` on the card: checks the arguments, then launches
-    K8."""
+    K8 (with an alpha buffer only when `with_alpha`)."""
     N, S = _check_rays("render_v0_feats", pts_ndc, z_vals, dirs)
     if feats.shape != (N, S, N_FEATS):
         raise ValueError(f"render_v0_feats kernel: feats "
@@ -325,17 +330,23 @@ def render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp):
     _check_tensors("render_v0_feats", dev, weights=weights)
     out = torch.empty((N, 5), device=dev)
     wout = torch.empty((N, S), device=dev)
+    aout = torch.empty((N, S), device=dev) if with_alpha else None
     rc = library().render_v0_feats(
         pts_ndc.data_ptr(), z_vals.data_ptr(), feats.data_ptr(),
         dirs.data_ptr(), weights.data_ptr(), tc.data_ptr(), out.data_ptr(),
-        wout.data_ptr(), N, S, N_WEIGHTS, TC_TOTAL, stream_of(pts_ndc))
+        wout.data_ptr(), None if aout is None else aout.data_ptr(), N, S,
+        N_WEIGHTS, TC_TOTAL, stream_of(pts_ndc))
     check(rc, "render_v0_feats")
     render_v0_feats.launches += 1
-    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4],
-            "weights": wout}
+    res = {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4],
+           "weights": wout}
+    if with_alpha:
+        res["alpha"] = aout
+    return res
 
 
-def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp):
+def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp,
+                    with_alpha: bool = False):
     """K8: render N rays of S samples whose MLP features are gathered.
 
     Args:
@@ -345,15 +356,21 @@ def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp):
         dirs: (N, 3) unit ray directions in the reference frame.
         z_vals: (N, S) metric depths.
         mlp: the v0 `MVSNeRF` module.
+        with_alpha: also return each sample's alpha, 1 - exp(-sigma), as
+            the kernel computes it (not rebuilt from the weights: their
+            1e-10 transmittance epsilon and opaque rays' cancellation would
+            spoil it).
     Returns:
-        dict rgb (N, 3), depth (N,), acc (N,), weights (N, S); no white
-        background.
+        dict rgb (N, 3), depth (N,), acc (N,), weights (N, S) (and alpha
+        (N, S)); no white background.
     """
     if pts_ndc.device.type == "cpu":
-        return render_v0_feats_plain(pts_ndc, feats, dirs, z_vals, mlp)
+        return render_v0_feats_plain(pts_ndc, feats, dirs, z_vals, mlp,
+                                     with_alpha)
     if pts_ndc.device.type != "cuda":
         raise ValueError(f"render_v0_feats: no kernel for {pts_ndc.device}")
-    return render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp)
+    return render_v0_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp,
+                                  with_alpha)
 
 
 render_v0_feats.launches = 0

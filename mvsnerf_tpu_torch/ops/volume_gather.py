@@ -102,14 +102,19 @@ def splat_merges(ndc, volume_shape):
     return take, (int(inside.sum()) * cg - merged, merged)
 
 
-def volume_splat_kernel(g, ndc, volume_shape, adds=None):
+def volume_splat_kernel(g, ndc, volume_shape, adds=None, out=None):
     """K5 backward on the card: the (D, hp, wp, C) volume gradient of the
     (N, S, C) cotangent `g`, zeroed then splatted with 16-byte atomics.
     `adds`, when given, is a zeroed int64 CUDA tensor of 2 to which the
     kernel adds its corner adds to device memory and those it merged into
-    the next sample's (`splat_merges`)."""
+    the next sample's (`splat_merges`). `out`, when given, is a
+    `volume_shape` tensor that the splat adds into as it stands (not
+    zeroed) and returns: the fusion trainer's accumulator."""
     D, hp, wp, C = volume_shape
-    gvol = torch.zeros(volume_shape, device=g.device)
+    gvol = torch.zeros(volume_shape, device=g.device) if out is None else out
+    if tuple(gvol.shape) != tuple(volume_shape):
+        raise ValueError(f"volume splat kernel: out {tuple(gvol.shape)}, "
+                         f"want {tuple(volume_shape)}")
     _check_args(gvol, ndc)
     if g.shape != (*ndc.shape[:2], C) or g.dtype != torch.float32 or \
             g.device != gvol.device or not g.is_contiguous():

@@ -20,7 +20,9 @@ the kernels' plain twins instead, to hold one against the other.
 `render_density` evaluates the MLP's alpha head alone over the volume's
 voxels, the density volume's refresh (`--use_density_volume`), and
 `sample_rays` with a density volume adds importance samples drawn from it
-(`--N_importance`).
+(`--N_importance`). `sample_rays` with a world box (`bbox`) takes each
+ray's near and far where it crosses the box and puts its samples in the
+box's [0, 1] coordinates, the fusion trainer's canonical volume.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from ..ops.color_warp import color_warp, color_warp_plain
 from ..ops.compositing import raw2outputs
 from ..ops.encoding import positional_encoding
-from ..ops.geometry import get_ndc_coordinate
+from ..ops.geometry import get_ndc_coordinate, get_ndc_coordinate_bbox
 from ..ops.interp import index_point_feature
 from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
 from ..ops.render_fused import render_v0_feats, render_v0_feats_plain
@@ -94,7 +96,7 @@ def run_network(mlp, pts_ndc, viewdirs, feats, training: bool = False,
 def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
                 w2cs, intrinsics, imgs, white_bkgd: bool = False,
                 training: bool = False, twins: bool = False,
-                use_color_volume: bool = False):
+                use_color_volume: bool = False, with_alpha: bool = False):
     """The render entry (renderer.py:138-165, 266-313). With gradients
     off, PE, MLP and compositing run in K8 (or its twin with `twins`).
 
@@ -108,8 +110,11 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
             with `use_color_volume`).
         training: the fine-tune step's route (K5 fetch, K7 MLP).
         twins: the kernels' plain twins instead.
+        with_alpha: K8 also returns each sample's alpha (the fusion
+            trainer's local renders; JAX's `render_rays` returns it always).
     Returns:
-        dict rgb, depth, acc, weights (and disp, alpha with gradients on).
+        dict rgb, depth, acc, weights, the gathered (N, S, 20) `feats` (and
+        disp with gradients on, alpha with gradients on or `with_alpha`).
     """
     unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
                                              keepdim=True)
@@ -119,12 +124,14 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
     if not torch.is_grad_enabled():
         fused = render_v0_feats_plain if twins else render_v0_feats
         out = fused(pts_ndc.contiguous(), feats.contiguous(),
-                    angle.contiguous(), z_vals.contiguous(), mlp)
+                    angle.contiguous(), z_vals.contiguous(), mlp, with_alpha)
         if white_bkgd:
             out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
-        return out
-    raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
-    return raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
+    else:
+        raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
+        out = raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
+    out["feats"] = feats
+    return out
 
 
 # voxels a chunk of `render_density`: its widest activation, [PE | h]
@@ -148,7 +155,7 @@ def sample_rays(rays, n_samples: int, w2c_ref, intrinsic_ref, src_hw,
                 near_far, pad: int, perturb: float = 0.0,
                 generator: torch.Generator | None = None,
                 lindisp: bool = False, density_volume=None,
-                n_importance: int = 0):
+                n_importance: int = 0, bbox=None):
     """Samples of a (N, 8) ray buffer and their reference NDC: (pts
     (N, S, 3), rays_d (N, 3), z_vals (N, S), pts_ndc (N, S, 3)). Depths
     are jittered by `perturb` with draws from `generator` (on the rays'
@@ -158,18 +165,27 @@ def sample_rays(rays, n_samples: int, w2c_ref, intrinsic_ref, src_hw,
     remap). With a (D, hp, wp, 1) `density_volume` and `n_importance` > 0,
     `n_importance` more depths a ray are drawn from it after the jitter,
     from the same generator, and S = n_samples + n_importance (JAX
-    finetune.py:166-175)."""
+    finetune.py:166-175). With a (2, 3) world box `bbox` [min; max] the
+    depths run from where each ray enters the box to where it leaves it
+    (`ray_marcher(bbox_3d=...)`), and the coordinates are the box's
+    (p - min) / (max - min), before and after the importance step (JAX
+    fusion.py:224-232); the reference-view arguments are then unused and
+    may be None."""
     pts, _, rays_d, z_vals = ray_marcher(rays, n_samples, perturb=perturb,
                                          lindisp=lindisp,
-                                         generator=generator)
-    # staged copy: a blocking one would wait for the device every batch
-    inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0]).to(
-        rays.device, non_blocking=True)
+                                         generator=generator, bbox_3d=bbox)
+    if bbox is not None:
+        def ndc(p):
+            return get_ndc_coordinate_bbox(bbox[0], bbox[1], p)
+    else:
+        # staged copy: a blocking one would wait for the device every batch
+        inv_scale = torch.tensor([src_hw[1] - 1.0, src_hw[0] - 1.0]).to(
+            rays.device, non_blocking=True)
 
-    def ndc(p):
-        return get_ndc_coordinate(w2c_ref, intrinsic_ref, p, inv_scale,
-                                  near=near_far[0], far=near_far[1], pad=pad,
-                                  lindisp=lindisp)
+        def ndc(p):
+            return get_ndc_coordinate(w2c_ref, intrinsic_ref, p, inv_scale,
+                                      near=near_far[0], far=near_far[1],
+                                      pad=pad, lindisp=lindisp)
 
     pts_ndc = ndc(pts)
     if density_volume is not None and n_importance > 0:

@@ -3,11 +3,13 @@ into the encoding volume once, then the fused fetch + MLP + compositing
 kernel K6b over the 20-channel volume.
 
 Counterpart of mvsnerf_tpu/render/tiled.py (`bake_color_volume` :44,
-`make_tiled_renderer` :83 in its baked mode, `cached_tiled_renderer`
-:248), the eval CLI's `--render_mode tiled` and the fine-tune and video
-render. JAX's `make_tiled_renderer(exact_colors=True)` (the `hybrid`
-mode) is render/hybrid.py's `make_hybrid_renderer`. On the GPU a ray needs no image tile, window plan or
-locality check, so there is no `pick_tile`, `plan_tiles` or `_reject`:
+`make_tiled_renderer` :83 in its baked mode and its bbox mode,
+`cached_tiled_renderer` :248), the eval CLI's `--render_mode tiled` and
+the fine-tune, fusion and video render. JAX's
+`make_tiled_renderer(exact_colors=True)` (the `hybrid` mode) is
+render/hybrid.py's `make_hybrid_renderer`. On the GPU a ray needs no
+image tile, window plan or locality check, so there is no `pick_tile`,
+`plan_tiles` or `_reject`:
 every image renders, and a volume the kernel cannot take raises instead
 of falling back to the chunked path.
 """
@@ -61,7 +63,7 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
                         n_samples: int, pad: int, white_bkgd: bool = False,
                         chunk: int = 16384, lindisp: bool = False,
                         density_volume=None, n_importance: int = 0,
-                        color_feature=None):
+                        color_feature=None, bbox=None):
     """Return fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,).
 
     Args:
@@ -83,8 +85,17 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
         color_feature: the (D, hp, wp, 12) colours of
             `color_feature_volume`, baked already: an 8-channel volume is
             joined to them instead of baked again (JAX tiled.py:100-102).
+        bbox: a (2, 3) world box [min; max]: the fusion trainer's
+            canonical volume, in the box's [0, 1] coordinates
+            (`sample_rays(bbox=...)`; JAX tiled.py:97-100, 120-122,
+            157-173). The volume must be baked already (20 channels);
+            `imgs`, `near_far` and `pad` are then unused and may be None.
     The returned function carries the baked volume as `.volume`.
     """
+    if bbox is not None and volume.shape[-1] != N_FEATS:
+        raise ValueError(f"tiled render in a bbox: volume "
+                         f"{tuple(volume.shape)} is not the baked "
+                         f"{N_FEATS}-channel one")
     if volume.shape[-1] == 8 and color_feature is not None:
         volume = torch.cat([volume.detach(), color_feature], -1)
     elif volume.shape[-1] == 8:
@@ -97,11 +108,13 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
     w2cs = pose_source["w2cs"].contiguous()
     intrinsics = pose_source["intrinsics"].contiguous()
 
+    src_hw = None if bbox is not None else imgs.shape[1:3]
+
     def chunk_fn(rays, gen):
         _, rays_d, z_vals, pts_ndc = sample_rays(
-            rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad, generator=gen, lindisp=lindisp,
-            density_volume=density_volume, n_importance=n_importance)
+            rays, n_samples, w2cs[0], intrinsics[0], src_hw, near_far, pad,
+            generator=gen, lindisp=lindisp, density_volume=density_volume,
+            n_importance=n_importance, bbox=bbox)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         out = render_v0(pts_ndc.contiguous(), z_vals.contiguous(), None,
                         gen_dir_feature(w2cs[0], unit).contiguous(), volume,
@@ -128,12 +141,14 @@ def cached_tiled_renderer(system, volume, imgs, near_far, pose_source,
     trainer updates the volume in place, so identity alone would keep a
     stale bake, and it replaces the density volume at each refresh, so the
     renderer must follow it. Other keyword arguments (`chunk`,
-    `n_samples`, ...) are keyed by value. The MLP is read live at each
-    call and needs no key."""
+    `n_samples`, ...) and the `bbox` are keyed by value. The MLP is read
+    live at each call and needs no key."""
     tensors = {"volume": volume,
-               **{k: v for k, v in kw.items() if torch.is_tensor(v)}}
-    key = (tuple(sorted((k, v) for k, v in kw.items()
-                        if not torch.is_tensor(v))),
+               **{k: v for k, v in kw.items()
+                  if torch.is_tensor(v) and k != "bbox"}}
+    values = {k: tuple(v.reshape(-1).tolist()) if torch.is_tensor(v) else v
+              for k, v in kw.items() if k not in tensors}
+    key = (tuple(sorted(values.items())),
            tuple(sorted((k, t._version) for k, t in tensors.items())))
     cached = getattr(system, "_tiled_cache", None)
     if cached is not None:

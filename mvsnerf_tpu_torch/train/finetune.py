@@ -18,7 +18,13 @@ baked into a (D, hp, wp, 1) density volume every 200 steps
 (`update_density_volume`), and with `--N_importance` > 0 each ray adds
 that many depths drawn from it (inverse CDF) to its `N_samples`;
 validation then runs 100 steps off the refresh. `--use_disp` spaces the
-sweep planes, the samples and NDC z linearly in disparity.
+sweep planes, the samples and NDC z linearly in disparity. Validation
+logs the held-out view's PSNR and its [gt | pred | depth] panel.
+
+train/fusion.py's `FusionFinetuneSystem` is a subclass: it overrides the
+volume, the optimizer, the samples, the density refresh and its cadence,
+and the tiled render, and shares the step, `fit`, validation and
+snapshots.
 
 Refused with NotImplementedError (ROADMAP.md): MLPs other than v0 at D=6,
 W=128, and reading the JAX package's `.msgpack` snapshots.
@@ -43,6 +49,7 @@ from ..render.renderer import gen_dir_feature, gen_pts_feats, \
     sample_rays
 from ..render.tiled import cached_tiled_renderer, color_feature_volume
 from ..utils.schedulers import make_lr_schedule
+from ..utils.vis import panel, visualize_depth
 from .common import Prefetcher, RayBatchIterator, unpreprocess_images
 
 
@@ -72,9 +79,9 @@ def frustum_point_volume(h, w, d, pad, near_far, intrinsic_s4, c2w):
     return pts.reshape(d, h + 2 * pad, w + 2 * pad, 3)
 
 
-# steps between refreshes of the density volume, and the offset of
-# validation from them (JAX finetune.py:245, 266)
-DENSITY_EVERY, VAL_PHASE = 200, 100
+# the offset of validation from the density refreshes (JAX
+# finetune.py:266, fusion.py:313)
+VAL_PHASE = 100
 
 
 def _refuse_unported(args):
@@ -102,6 +109,9 @@ class FinetuneSystem:
     the CPU their plain PyTorch versions.
     """
 
+    # steps between refreshes of the density volume (JAX finetune.py:245)
+    DENSITY_EVERY = 200
+
     def __init__(self, args, dataset_train, dataset_val=None, device=None):
         _refuse_unported(args)
         set_precision_policy()
@@ -128,6 +138,7 @@ class FinetuneSystem:
                     costreg_impl=args.costreg_impl)
             self.mlp, self.mvsnet = mlp.to(self.device), \
                 mvsnet.to(self.device)
+        self.use_color_volume = args.use_color_volume
         self._init_volume(ckpt_volume)
         self._build_optimizer()
 
@@ -175,13 +186,19 @@ class FinetuneSystem:
         values or 93.7M with the colour volume, and its moments instead of
         several)."""
         args = self.args
+        mvsnet = [] if args.use_color_volume else [*self.mvsnet.parameters()]
+        self._make_adam([*self.mlp.parameters(), self.volume, *mvsnet],
+                        args.num_epochs * 10000 or 10000)
+
+    def _make_adam(self, params, num_steps: int):
+        """Adam over `params` and a LambdaLR of the step schedule over
+        `num_steps` (only the cosine and poly schedules read it)."""
+        args = self.args
         schedule = make_lr_schedule(
             args.lrate, args.lr_scheduler, args.decay_step, args.decay_gamma,
-            num_steps=args.num_epochs * 10000 or 10000)
-        mvsnet = [] if args.use_color_volume else [*self.mvsnet.parameters()]
+            num_steps=num_steps)
         self.optimizer = torch.optim.Adam(
-            [*self.mlp.parameters(), self.volume, *mvsnet],
-            lr=args.lrate, betas=(0.9, 0.999),
+            params, lr=args.lrate, betas=(0.9, 0.999),
             fused=self.device.type == "cuda")
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda s: schedule(s) / args.lrate)
@@ -213,7 +230,7 @@ class FinetuneSystem:
                            self.pose_source["intrinsics"], self.imgs,
                            white_bkgd=self.args.white_bkgd,
                            training=training, twins=twins,
-                           use_color_volume=self.args.use_color_volume)
+                           use_color_volume=self.use_color_volume)
 
     @torch.no_grad()
     def mlp_input(self, rays, generator=None):
@@ -223,7 +240,7 @@ class FinetuneSystem:
         w2cs = self.pose_source["w2cs"]
         feats = gen_pts_feats(self.volume, pts_ndc, pts, w2cs,
                               self.pose_source["intrinsics"], self.imgs,
-                              use_color_volume=self.args.use_color_volume)
+                              use_color_volume=self.use_color_volume)
         unit = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         return network_input(pts_ndc, gen_dir_feature(w2cs[0], unit), feats)
 
@@ -242,6 +259,11 @@ class FinetuneSystem:
         sigma = render_density(self.mlp, self.vox_pts.reshape(-1, 3),
                                vol.reshape(d * hp * wp, -1))
         self.density_volume = sigma.reshape(d, hp, wp, 1)
+
+    def _refreshes_density(self) -> bool:
+        """Whether `fit` refreshes the density volume (every
+        DENSITY_EVERY steps) and offsets validation from the refreshes."""
+        return self.args.use_density_volume
 
     def _step(self, rays, rgbs, generator=None, twins: bool = False):
         """One step on a (N, 8) ray batch and its (N, 3) colours: MSE, its
@@ -264,13 +286,15 @@ class FinetuneSystem:
         finetune.py:229-277): batches from `RayBatchIterator(seed)`, depth
         jitter from a generator on the device seeded from (seed, step).
         With `--use_density_volume` the density volume is baked again
-        before every step that is a multiple of DENSITY_EVERY. Every
+        before every step that is a multiple of DENSITY_EVERY
+        (`_refreshes_density`). Every
         `val_every` steps (offset by VAL_PHASE with the density volume) a
         held-out view is rendered and its PSNR logged; snapshots every 5000
         steps and at the end when `ckpt_dir` is given. Returns the losses
         as floats."""
         args = self.args
-        val_phase = VAL_PHASE if args.use_density_volume else 0
+        refresh = self._refreshes_density()
+        val_phase = VAL_PHASE if refresh else 0
         it = Prefetcher(RayBatchIterator(
             {"rays": self.train_dataset.all_rays,
              "rgbs": self.train_dataset.all_rgbs}, args.batch_size,
@@ -279,7 +303,7 @@ class FinetuneSystem:
         losses = []
         try:
             for step_i in range(start_step, num_steps):
-                if args.use_density_volume and step_i % DENSITY_EVERY == 0:
+                if refresh and step_i % self.DENSITY_EVERY == 0:
                     self.update_density_volume()
                 batch = next(it)
                 gen.manual_seed(seed * 2 ** 32 + step_i)
@@ -307,12 +331,15 @@ class FinetuneSystem:
         return torch.stack(losses).cpu().tolist() if losses else []
 
     def validate(self, step_i: int, logger, chunk: int | None = None):
-        """Render one held-out view (cycling through the val split) and log
-        val/PSNR. Returns the PSNR, or None without a val dataset."""
+        """Render one held-out view (cycling through the val split), log
+        val/PSNR and save its [gt | pred | depth] panel (JAX
+        finetune.py:279-299). Returns the PSNR, or None without a val
+        dataset."""
         if self.val_dataset is None or len(self.val_dataset) == 0:
             return None
         self._val_counter = getattr(self, "_val_counter", -1) + 1
-        sample = self.val_dataset[self._val_counter % len(self.val_dataset)]
+        idx = self._val_counter % len(self.val_dataset)
+        sample = self.val_dataset[idx]
         gt = np.asarray(sample["rgbs"])
         h, w = gt.shape[:2]
         out = self.render_image(sample["rays"],
@@ -320,6 +347,8 @@ class FinetuneSystem:
         pred = np.clip(out["rgb"].cpu().numpy().reshape(h, w, 3), 0, 1)
         val_psnr = psnr(pred, gt)
         logger.log_scalars(step_i, {"val/PSNR": val_psnr})
+        dvis, _ = visualize_depth(out["depth"].cpu().numpy().reshape(h, w))
+        logger.save_panel(step_i, f"val_{idx:02d}", panel([gt, pred, dvis]))
         return val_psnr
 
     # --------------------------------------------------------- rendering ---
@@ -339,19 +368,11 @@ class FinetuneSystem:
         and importance depths drawn after them, all from one generator
         seeded 0 (the JAX trainer renders with PRNGKey(0) and its
         fold_in(1))."""
-        args = self.args
         rays = torch.as_tensor(np.asarray(rays, np.float32),
                                device=self.device)
-        if args.render_mode == "tiled":
-            fn = cached_tiled_renderer(
-                self, self.volume, self.imgs, self.near_far,
-                self.pose_source, n_samples=args.N_samples, pad=args.pad,
-                white_bkgd=args.white_bkgd, chunk=chunk,
-                lindisp=args.use_disp, density_volume=self.density_volume,
-                n_importance=args.N_importance,
-                color_feature=self.color_feature)
+        if self.args.render_mode == "tiled":
             # rays render one by one: a (1, N) "image" is the whole buffer
-            return fn(rays, 1, rays.shape[0])
+            return self._tiled_renderer(chunk)(rays, 1, rays.shape[0])
         gen = torch.Generator(device=self.device).manual_seed(0)
 
         def chunk_fn(r):
@@ -359,6 +380,16 @@ class FinetuneSystem:
             return {"rgb": out["rgb"], "depth": out["depth"]}
 
         return render_image_chunked(chunk_fn, (rays,), rays.shape[0], chunk)
+
+    def _tiled_renderer(self, chunk: int):
+        """`render_image`'s tiled renderer (`cached_tiled_renderer`)."""
+        args = self.args
+        return cached_tiled_renderer(
+            self, self.volume, self.imgs, self.near_far, self.pose_source,
+            n_samples=args.N_samples, pad=args.pad,
+            white_bkgd=args.white_bkgd, chunk=chunk, lindisp=args.use_disp,
+            density_volume=self.density_volume,
+            n_importance=args.N_importance, color_feature=self.color_feature)
 
     # ------------------------------------------------------------- state ---
 

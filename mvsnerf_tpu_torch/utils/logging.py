@@ -1,6 +1,6 @@
-"""Scalar logging to `<log_dir>/metrics.csv` (the CSV half of
-mvsnerf_tpu/utils/logging.py's MetricLogger; TensorBoard and image panels
-are not ported yet)."""
+"""Scalar logging to `<log_dir>/metrics.csv` and PNG panels beside it (the
+CSV and panel halves of mvsnerf_tpu/utils/logging.py's MetricLogger;
+TensorBoard is not ported yet)."""
 
 from __future__ import annotations
 
@@ -32,3 +32,14 @@ class MetricLogger:
         else:
             with open(self.csv_path, "a", newline="") as f:
                 csv.DictWriter(f, fieldnames=self._keys).writerow(row)
+
+    def save_panel(self, step: int, name: str, image):
+        """Write an (H, W, 3) [0, 1] image as `<log_dir>/<name>_<step>.png`
+        (JAX utils/logging.py:58, reference train_mvs_nerf_pl.py:247-250);
+        returns the path. imageio is imported here only."""
+        import imageio.v2 as imageio
+        import numpy as np
+        path = os.path.join(self.log_dir, f"{name}_{step:08d}.png")
+        imageio.imwrite(path, (np.clip(np.asarray(image), 0, 1) * 255)
+                        .astype(np.uint8))
+        return path

@@ -51,6 +51,8 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.utils.vis",
     "mvsnerf_tpu_torch.evaluate",
     "mvsnerf_tpu_torch.render_video",
+    "mvsnerf_tpu_torch.train.fusion",
+    "mvsnerf_tpu_torch.train_fusion",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
