@@ -10,7 +10,8 @@ also with the U-Net on the hand-written K10 kernels (`--costreg_impl
 dband`), the colour-baked volume with the eval and video entry points,
 the render's gradient in its source images (K4's backward), the
 density volume with importance sampling and `--use_disp`, and the fusion
-trainer.
+trainer; then the Blender (800x800) and LLFF (960x640) datasets through
+their loaders, the fine-tune trainer, every render mode and the CLIs.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -157,7 +158,30 @@ trainer.
      the fused volume and K6b in box coordinates, with event and device
      times; (f) the fuse on `--costreg_impl dband`, timed, and its first 2
      views under `torch.profiler`: K10's launches, no library convolution
-     or GEMM in their U-Nets, and the fuse against the cuDNN one.
+     or GEMM in their U-Nets, and the fuse against the cuDNN one;
+ 13. the Blender and LLFF datasets at their published resolutions, on
+     scenes written by `mvsnerf_tpu_torch.data.synthetic` into a temporary
+     directory: NeRF-synthetic `lego` at 800x800 (RGBA PNGs of the 20
+     frames its pair table names, blended onto white, `--white_bkgd`) and
+     LLFF `fern` at 960x640 (20 images, a forward-facing
+     `poses_bounds.npy`). For each: (a) the loaders (train and val splits,
+     the source views); (b) `Evaluator.build_volume` on cuDNN and on dband
+     (K10's generic stride-2 route at Blender's width 62), held to each
+     other as in phase 8d and timed; (c) one fine-tune step on the kernels
+     against one on the twins, then 36 steps of `fit` timed over the last
+     30 (ms/step, rays/s); (d) one full-resolution request in each of the
+     chunked, hybrid and tiled modes after a first one, hybrid held to
+     chunked as in phase 4; (e) the CLIs `train_finetune` (3 steps, then
+     the 4 val views), `evaluate --render_mode hybrid` (on dband for
+     Blender) and `render_video --render_mode tiled` (3 frames from the
+     fine-tune's snapshot), run from the temporary directory; (f) the
+     launches of K1, K4, K5, K6, K6b, K7, K8 and, for Blender, K10's
+     generic stride-2 route over (b)-(e); (g) `native.available()`, the
+     fit's batches counted at `native.ray_gather`, and its time a batch
+     beside numpy's; then `torch.profiler` over 3 steps. Then K1 at each
+     dataset's volume and K10's generic stride-2 call against their twins
+     and cuDNN, and `torch.profiler` over a volume build on each route and
+     a chunked and a tiled request.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -274,6 +298,13 @@ FUSE_VIEWS, FUSE_HELD, TOL_FUSE, FUSE_FLOOR = 16, 2, 1e-3, 1.0
 # +0.05, one standard deviation of its draw, so that the step has gradients
 FUSE_SIGMA_BIAS = 0.05
 FUSE_BOX = ((-1.0, -1.0, 2.2), (1.0, 1.0, 4.2))  # data/dtu_ft.py's DTU box
+# phase 13: the Blender and LLFF datasets at their published resolutions on
+# scenes written by mvsnerf_tpu_torch.data.synthetic; the fine-tune CLI
+# takes CLI_STEPS steps, the video CLI renders CLI_FRAMES frames
+DATASET_WH = {"blender": (800, 800), "llff": (960, 640)}
+CLI_STEPS, CLI_FRAMES = 3, 3
+# volume builds timed a route after the counted one
+BUILD_AGAIN = 2
 
 
 def require(cond, msg):
@@ -566,8 +597,11 @@ def kernel_entry(kernels, name, source, replaces, err, tol, fn_k, fn_p,
                         replaces=replaces, max_abs_err=err, tol=tol,
                         ms=cuda_ms(fn_k), plain_ms=cuda_ms(fn_p),
                         library_ms=fn_lib and cuda_ms(fn_lib),
-                        device_ms=device_total(fn_k),
-                        device_library_ms=fn_lib and device_total(fn_lib),
+                        # None where the profiler saw no device activity
+                        # (it can lose a short call's every launch)
+                        device_ms=device_total(fn_k) or None,
+                        device_library_ms=fn_lib and (device_total(fn_lib)
+                                                      or None),
                         **bound(n_bytes, flops, tc_passes), **extra))
 
 
@@ -639,10 +673,10 @@ def k4_library_inputs(pts, w2cs, intrs, imgs):
             grids.reshape(V, -1, 1, 2).contiguous())
 
 
-def k1_inputs(ev, src):
+def k1_inputs(ev, src, near_far=NEAR_FAR):
     """K1's arguments on the serving path: the (3, h, w, 35) [feat | rgb]
     sources of `src` (images, projections, poses), the projections, the
-    128 plane depths, the pad and the feature width."""
+    128 plane depths over `near_far`, the pad and the feature width."""
     import torch
     from mvsnerf_tpu_torch.models.mvsnet import depth_plane_values
     from mvsnerf_tpu_torch.ops.interp import interpolate_bilinear_resize
@@ -654,7 +688,7 @@ def k1_inputs(ev, src):
     imgs_l = torch.stack([interpolate_bilinear_resize(im, h4, w4)
                           for im in imgs_t])
     srcs = torch.cat([feats, imgs_l], dim=-1).contiguous()
-    nf = torch.tensor(NEAR_FAR, device=dev)
+    nf = torch.tensor(near_far, device=dev)
     return (srcs, torch.tensor(projs, device=dev),
             depth_plane_values(nf[0], nf[1], N_PLANES, device=dev), PAD, 32)
 
@@ -702,19 +736,25 @@ def k4_device_times(imgs01, pose_t, requests):
                     align_corners=True)))
 
 
+def save_seeded_checkpoint(path, mlp, mvsnet):
+    """Write the seeded weights as a reference-format checkpoint at `path`
+    (the `--ckpt` the trainers and CLIs read); returns the path."""
+    import torch
+    torch.save({"global_step": 0, "network_fn_state_dict": mlp.state_dict(),
+                "network_mvs_state_dict": mvsnet.state_dict()}, path)
+    return path
+
+
 def finetune_system(dev, mlp, mvsnet, scene, extra=""):
     """`FinetuneSystem` on `scene` from a reference-format checkpoint of
     the seeded weights, at phase 6's flags plus `extra`."""
     import tempfile
 
-    import torch
     from mvsnerf_tpu_torch.config import config_parser
     from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "seeded.tar")
-        torch.save({"global_step": 0,
-                    "network_fn_state_dict": mlp.state_dict(),
-                    "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                      mvsnet)
         args = config_parser(
             f"--dataset_name dtu_ft --with_rgb_loss --pad {PAD} "
             f"--batch_size {FT_BATCH} --N_samples {N_SAMPLES} --ckpt {ckpt} "
@@ -1286,14 +1326,11 @@ def generalizable_system(dev, mlp, mvsnet, extra=""):
     flags."""
     import tempfile
 
-    import torch
     from mvsnerf_tpu_torch.config import config_parser
     from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "seeded.tar")
-        torch.save({"global_step": 0,
-                    "network_fn_state_dict": mlp.state_dict(),
-                    "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                      mvsnet)
         args = config_parser(
             f"--dataset_name dtu --pad {PAD} --N_samples {N_SAMPLES} "
             f"--batch_size {GEN_BATCH} --with_depth_loss --with_depth "
@@ -2720,14 +2757,11 @@ def fusion_system(dev, mlp, mvsnet, scene, extra=""):
     flags plus `extra`."""
     import tempfile
 
-    import torch
     from mvsnerf_tpu_torch.config import config_parser
     from mvsnerf_tpu_torch.train.fusion import FusionFinetuneSystem
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "seeded.tar")
-        torch.save({"global_step": 0,
-                    "network_fn_state_dict": mlp.state_dict(),
-                    "network_mvs_state_dict": mvsnet.state_dict()}, ckpt)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                      mvsnet)
         args = config_parser(
             f"--dataset_name dtu_ft --with_rgb_loss --pad {PAD} "
             f"--batch_size {FT_BATCH} --N_samples {N_SAMPLES} --ckpt {ckpt} "
@@ -3148,7 +3182,436 @@ def fusion_phase(dev, mlp, mvsnet, failures):
     return kernels
 
 
+class Counted:
+    """`fn` counting its calls in `calls`."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+def write_dataset_scenes(root):
+    """Phase 13's scenes under `root`: Blender `lego` at 800x800 (RGBA PNGs
+    of the 20 frames its pair table names, 100 poses) and LLFF `fern` at
+    960x640 (20 images); {dataset: directory}."""
+    from mvsnerf_tpu_torch.data import synthetic
+    from mvsnerf_tpu_torch.data.pairs import get_split
+    dirs = {"blender": os.path.join(root, "lego"),
+            "llff": os.path.join(root, "fern")}
+    frames = np.concatenate([get_split("lego", "train"),
+                             get_split("lego", "val")])
+    synthetic.write_blender_scene(dirs["blender"], res=800, frames=frames,
+                                  seed=SEED + 13)
+    synthetic.write_llff_scene(dirs["llff"], wh=(960, 640), seed=SEED + 14)
+    return dirs
+
+
+def dataset_counters():
+    """Phase 13's launch counters: name -> (object, attribute)."""
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume
+    return {"K1": (sweep_cost_volume, "launches"),
+            "K4": (color_warp, "launches"),
+            "K5 fwd": (k5.sample_volume, "launches"),
+            "K5 bwd": (k5.sample_volume, "bwd_launches"),
+            "K6": (rf.render_v0, "launches"),
+            "K6b": (rf.render_v0, "baked_launches"),
+            "K7 fwd": (k7.mlp_v0_train, "launches"),
+            "K7 bwd": (k7.mlp_v0_train, "bwd_launches"),
+            "K8": (rf.render_v0_feats, "launches"),
+            "K10 s2 generic": (k10.s2_routes, "generic"),
+            "K10 s2 pair": (k10.s2_routes, "pair")}
+
+
+def zero_counts(counters):
+    for obj, attr in counters.values():
+        if isinstance(obj, dict):
+            obj[attr] = 0
+        else:
+            setattr(obj, attr, 0)
+
+
+def read_counts(counters):
+    return {name: obj[attr] if isinstance(obj, dict) else getattr(obj, attr)
+            for name, (obj, attr) in counters.items()}
+
+
+def synced_ms(fn):
+    """(fn()'s result, host ms of the call, synchronised on both sides)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dataset_run(dev, mlp, mvsnet, name, datadir, ckpt, white, tmp,
+                failures):
+    """Phase 13 (a)-(e) and (g) on one dataset; returns what the kernel
+    entries need (K1's inputs, K10's generic stride-2 call) and the
+    launches and times of its main paths."""
+    import torch
+    from mvsnerf_tpu_torch import evaluate, native, render_video, \
+        train_finetune
+    from mvsnerf_tpu_torch.config import config_parser
+    from mvsnerf_tpu_torch.data import dataset_dict
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.render import tiled
+    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
+    tag = f"13 {name}"
+    counters = dataset_counters()
+    total = dict.fromkeys(counters, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # ---- (a) the loader
+    flags = (f"--dataset_name {name} --datadir {datadir} --with_rgb_loss "
+             f"--pad {PAD} --batch_size {FT_BATCH} --N_samples {N_SAMPLES} "
+             f"--ckpt {ckpt}" + (" --white_bkgd" if white else ""))
+    args = config_parser(flags)
+    t0 = time.perf_counter()
+    train = dataset_dict[name](args, "train")
+    val = dataset_dict[name](args, "val")
+    src = train.read_source_views()
+    load_s = time.perf_counter() - t0
+    w, h = train.img_wh
+    nf = train.all_rays[:, 6:]
+    print(f"[{tag} loader] train: {len(train.all_rays)} rays of "
+          f"{len(train.img_idx)} views at {w}x{h}; val: {len(val)} views "
+          f"{tuple(val.all_rgbs.shape)}; focal {np.round(train.focal, 3)}; "
+          f"rays' near/far in [{nf[:, 0].min():.4f}, {nf[:, 1].max():.4f}], "
+          f"the sources' {np.round(src[2], 4).tolist()}; loaded (train, "
+          f"val, sources) in {load_s:.2f} s")
+    require(train.img_wh == DATASET_WH[name] and
+            val.all_rays.shape == (len(val), w * h, 8) and
+            src[0].shape == (3, h, w, 3), f"[{tag}] the loader's shapes")
+    if white:
+        print(f"   alpha masks: {float(val.all_masks.mean()):.3f} of the "
+              f"val pixels opaque; a clear corner's rgb "
+              f"{val.all_rgbs[0, 0, 0].tolist()}")
+        check(bool((val.all_rgbs[:, 0, 0] == 1.0).all()),
+              f"[{tag}] the clear pixels are not white", failures)
+
+    # ---- (b) the volume build on cuDNN and on dband
+    ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD, chunk=CHUNK,
+                   white_bkgd=white, device=dev)
+    ev_d = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD, chunk=CHUNK,
+                     white_bkgd=white, device=dev, costreg_impl="dband")
+    builds = {}
+    for label, e in (("cuDNN", ev), ("dband", ev_d)):
+        e.build_volume(*src)
+        zero_counts(counters)
+        vol, builds[label] = synced_ms(lambda: e.build_volume(*src)[0])
+        counts = read_counts(counters)
+        add(counts)
+        again = [synced_ms(lambda: e.build_volume(*src))[1]
+                 for _ in range(BUILD_AGAIN)]
+        print(f"[{tag} volume] build_volume on {label}: {builds[label]:.1f} "
+              f"ms (then {[round(t, 1) for t in again]}), volume "
+              f"{tuple(vol.shape)}, launches K1 {counts['K1']}, K10 s2 by "
+              f"route: generic {counts['K10 s2 generic']}, pair "
+              f"{counts['K10 s2 pair']}")
+        if label == "cuDNN":
+            vol_c = vol
+    require(tuple(vol_c.shape) == (N_PLANES, h // 4 + 2 * PAD,
+                                   w // 4 + 2 * PAD, 8) and
+            bool(torch.isfinite(vol_c).all()), f"[{tag}] the volume")
+    rel = max_err(vol, vol_c) / float(vol_c.abs().max())
+    print(f"[{tag} volume] dband against cuDNN: max abs diff / max "
+          f"{rel:.2e} (tol 1e-4)")
+    check(rel <= 1e-4, f"[{tag}] the dband volume disagrees with cuDNN's",
+          failures)
+    check(total["K10 s2 generic"] == (1 if name == "blender" else 0),
+          f"[{tag}] K10's generic stride-2 route ran "
+          f"{total['K10 s2 generic']} times in the dband build", failures)
+    del vol, vol_c
+    generic_calls = []
+
+    def recording(x, w_, stride, *rest):
+        if stride == 2 and not k10.library().conv3d_s2_pairs(
+                x.shape[4], k10.out_size(x.shape[4], 2)):
+            generic_calls.append((x.detach().clone(), w_.detach().clone()))
+        return fn(x, w_, stride, *rest)
+
+    fn = k10.conv3d_fwd
+    with swapped(k10, "conv3d_fwd", recording), torch.no_grad():
+        ev_d.build_volume(*src)
+    k1 = k1_inputs(ev, (src[0], src[1], src[3]), src[2])
+    del ev_d
+
+    # ---- (c) the fine-tune step and fit, the batches from the native
+    # gather
+    system = FinetuneSystem(args, train, val, device=dev)
+    rays, rgbs = first_batch(train, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    plain_ms = step_parity(tag, system, rays, rgbs, gen, failures)
+    gather = Counted(native.ray_gather)
+    fit_counters = {"K4 color_warp": counters["K4"], **k5_counters(),
+                    "K7 mlp_v0 (fwd)": counters["K7 fwd"],
+                    "K7 mlp_v0 (bwd)": counters["K7 bwd"],
+                    "native.ray_gather": (gather, "calls")}
+    zero_counts(counters)
+    with swapped(native, "ray_gather", gather):
+        _, step_ms = timed_fit(tag, system, fit_counters, plain_ms, failures)
+    add(read_counts(counters))
+    # ---- (g) the native library
+    idx = np.random.default_rng(SEED).permutation(len(train.all_rays))[
+        :FT_BATCH]
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        native.ray_gather(train.all_rays, train.all_rgbs, idx)
+    t_native = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        train.all_rays[idx], train.all_rgbs[idx]
+    t_numpy = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"[{tag} native] native.available() {native.available()}; fit's "
+          f"batches from native.ray_gather: {gather.calls} calls; a "
+          f"{FT_BATCH}-ray batch gathered in {t_native:.4f} ms native, "
+          f"{t_numpy:.4f} ms numpy (host clock, {reps} calls)")
+    check(native.available() and gather.calls >= FT_WARM + FT_TIMED,
+          f"[{tag}] the fine-tune's batches did not come from the native "
+          "gather", failures)
+    step_profile(tag, system, rays, rgbs, gen, FT_STEP_GROUPS)
+    del system, rays, rgbs
+    torch.cuda.empty_cache()
+
+    # ---- (d) one full-resolution request in each mode
+    ev.build_volume(*src)
+    rays_v = torch.from_numpy(val[0]["rays"]).to(dev)
+    want = {"chunked": ("K4", "K8"), "hybrid": ("K4", "K6"),
+            "tiled": ("K6b",)}
+    outs, request_ms = {}, {}
+    for mode, kernels_of_mode in want.items():
+        ev.render(rays_v, h, w, mode=mode)  # the renderer's first request
+        zero_counts(counters)
+        out, request_ms[mode] = synced_ms(
+            lambda: ev.render(rays_v, h, w, mode=mode))
+        counts = read_counts(counters)
+        add(counts)
+        ok = all(tuple(out[k].shape) == s and bool(torch.isfinite(out[k])
+                                                   .all())
+                 for k, s in (("rgb", (h * w, 3)), ("depth", (h * w,)),
+                              ("acc", (h * w,))))
+        print(f"[{tag} request] {mode}: {w}x{h} in {request_ms[mode]:.1f} "
+              f"ms ({h * w / request_ms[mode] * 1e3:.0f} rays/s), launches "
+              f"{ {k: counts[k] for k in ('K4', 'K6', 'K6b', 'K8')} }, acc "
+              f"mean {float(out['acc'].mean()):.4f}, finite {ok}")
+        check(ok and all(counts[k] > 0 for k in kernels_of_mode),
+              f"[{tag}] the {mode} request is not finite or never launched "
+              f"{kernels_of_mode}", failures)
+        outs[mode] = out
+    # K6b held to its twin on the same baked volume, as in phase 9
+    with torch.no_grad(), swapped(tiled, "render_v0", rf.render_v0_plain):
+        twin = ev.render(rays_v, h, w, mode="tiled")
+    terr = max_err(outs["tiled"], twin)
+    worst = max_err(outs["hybrid"]["rgb"], outs["chunked"]["rgb"])
+    print(f"[{tag} request] hybrid vs chunked rgb max abs diff {worst:.3e} "
+          f"(tol {TOL_MODES:.0e}); tiled vs its twin path on the same baked "
+          f"volume {tuple(ev.renderer('tiled').volume.shape)}: max abs err "
+          f"{terr:.3e} (tol {TOL_K6:.0e}); tiled vs chunked (baked against "
+          f"exact colours, no tolerance) "
+          f"{max_err(outs['tiled']['rgb'], outs['chunked']['rgb']):.3e}")
+    check(worst <= TOL_MODES, f"[{tag}] hybrid and chunked disagree",
+          failures)
+    check(terr <= TOL_K6, f"[{tag}] the tiled request disagrees with its "
+          "twin path", failures)
+    del twin
+    del outs, rays_v, ev
+    torch.cuda.empty_cache()
+
+    # ---- (e) the CLIs, on the card, in a directory of their own
+    base = ["--dataset_name", name, "--datadir", datadir, "--ckpt", ckpt,
+            "--pad", str(PAD), "--with_rgb_loss", "--expname",
+            f"smoke_{name}"] + (["--white_bkgd"] if white else [])
+    snapshot = os.path.join("runs_fine_tuning", f"smoke_{name}", "ckpts",
+                            f"ckpt_{CLI_STEPS:09d}.pt")
+    dband = ["--costreg_impl", "dband"] if name == "blender" else []
+    clis = (("train_finetune", ("K1", "K4", "K5 fwd", "K5 bwd", "K7 fwd",
+                                "K7 bwd", "K8"),
+             lambda: train_finetune.main(base + ["--max_steps",
+                                                 str(CLI_STEPS)])),
+            ("evaluate --render_mode hybrid" + " --costreg_impl dband" *
+             bool(dband), ("K1", "K4", "K6") + ("K10 s2 generic",) *
+             bool(dband),
+             lambda: evaluate.main(base + ["--render_mode", "hybrid"] +
+                                   dband)),
+            ("render_video --render_mode tiled", ("K1", "K6b"),
+             lambda: render_video.main(base + ["--render_mode", "tiled",
+                                               "--ckpt", snapshot],
+                                       n_frames=CLI_FRAMES)))
+    cli_out = {}
+    with contextlib.chdir(tmp):
+        for label, needed, run in clis:
+            zero_counts(counters)
+            cli_out[label], ms = synced_ms(run)
+            counts = read_counts(counters)
+            add(counts)
+            print(f"[{tag} cli] {label}: {ms / 1e3:.1f} s, launches "
+                  f"{ {k: n for k, n in counts.items() if n} }")
+            check(all(counts[k] > 0 for k in needed),
+                  f"[{tag}] {label} never launched one of {needed}", failures)
+    metrics = cli_out[clis[1][0]]
+    frames = cli_out[clis[2][0]]
+    print(f"[{tag} cli] evaluate's mean over {len(metrics['per_image'])} "
+          f"val views: { {k: round(v, 4) for k, v in metrics['mean'].items()} }"
+          f"; render_video: {len(frames)} frames of "
+          f"{frames[0].shape if frames else None}")
+    check(len(metrics["per_image"]) == len(val) and
+          all(math.isfinite(v) for v in metrics["mean"].values()) and
+          len(frames) == CLI_FRAMES and
+          all(f.shape == (h, 2 * w, 3) for f in frames),
+          f"[{tag}] the CLIs' outputs are wrong", failures)
+
+    # ---- (f) every kernel of the path ran
+    print(f"[{tag} launches] over (b)-(e): "
+          f"{ {k: n for k, n in total.items()} }")
+    needed = ["K1", "K4", "K5 fwd", "K5 bwd", "K6", "K6b", "K7 fwd",
+              "K7 bwd", "K8"] + ["K10 s2 generic"] * (name == "blender")
+    check(all(total[k] > 0 for k in needed),
+          f"[{tag}] a kernel of the path never launched", failures)
+    print(f"[{tag} summary] volume build {builds['cuDNN']:.1f} ms on cuDNN, "
+          f"{builds['dband']:.1f} on dband; fine-tune {step_ms:.2f} "
+          f"ms/step, {FT_BATCH / step_ms * 1e3:.0f} rays/s; ms/request "
+          f"chunked {request_ms['chunked']:.1f}, hybrid "
+          f"{request_ms['hybrid']:.1f}, tiled {request_ms['tiled']:.1f}")
+    return dict(k1=k1, generic=generic_calls, launches=total, src=src,
+                white=white, rays=val[0]["rays"], hw=(h, w))
+
+
+def dataset_kernel_entries(name, rec, failures):
+    """K1 at the dataset's volume and, for Blender, K10's generic stride-2
+    call (conv5, input width 62) against their twins, with the library
+    call (cuDNN's F.conv3d for K10), device times and bounds."""
+    import torch
+    import torch.nn.functional as F
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume, \
+        sweep_cost_volume_plain
+    kernels = []
+    with torch.no_grad():
+        k1 = rec["k1"]
+        srcs, proj_t, depths = k1[:3]
+        out_k, out_p = sweep_cost_volume(*k1), sweep_cost_volume_plain(*k1)
+        shape = tuple(out_k.shape[2:])
+        kernel_entry(kernels, f"K1 sweep_cost_volume {name} {shape}",
+                     "mvsnerf_tpu_torch/csrc/sweep.cu",
+                     "mvsnerf_tpu/ops/pallas_sweep2.py:316",
+                     max_err(out_k, out_p),
+                     TOL_K1 * (1 + float(out_p.abs().max())),
+                     lambda: sweep_cost_volume(*k1),
+                     lambda: sweep_cost_volume_plain(*k1), None,
+                     nbytes(srcs, proj_t, depths, out_k),
+                     sweep_flops(3, 32, out_k[0, 0].numel()))
+        kernels[-1]["launches"] = rec["launches"]["K1"]
+        del out_k, out_p
+        for x, w in rec["generic"]:
+            out_k = k10.conv3d_fwd_kernel(x, w, 2)
+            out_p = k10.conv3d_fwd_plain(x, w, 2)
+            taps = [k10_taps(n, m, 2) for n, m in zip(out_k.shape[2:],
+                                                      x.shape[2:])]
+            kernel_entry(kernels, f"K10 conv3d_s2 generic {name}",
+                         "mvsnerf_tpu_torch/csrc/conv3d.cu",
+                         K10_ENTRIES["s2"][1], max_err(out_k, out_p),
+                         TOL_K10 * (1 + float(out_p.abs().max())),
+                         lambda: k10.conv3d_fwd_kernel(x, w, 2),
+                         lambda: k10.conv3d_fwd_plain(x, w, 2),
+                         lambda: F.conv3d(x, w, stride=2, padding=1),
+                         nbytes(x, w, out_k),
+                         2 * w.shape[0] * w.shape[1] * math.prod(taps),
+                         shape=f"{tuple(x.shape[1:])} -> "
+                               f"{tuple(out_k.shape[1:])}")
+            kernels[-1]["launches"] = rec["launches"]["K10 s2 generic"]
+            lib = device_ms(lambda: F.conv3d(x, w, stride=2, padding=1))
+            print(f"   K10 generic {name}: cuDNN's call on the device, by "
+                  f"kernel (torch.profiler): "
+                  f"{ {k[:70]: round(v, 4) for k, v in lib.items()} }")
+            del out_k, out_p
+    report(13, kernels, failures)
+    return kernels
+
+
+def call_profile(tag, what, fn, top=6):
+    """`torch.profiler` over one call of `fn` after a first one: device
+    busy time against the wall, and the `top` kernels by device time with
+    their shares."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_ms(fn)
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(us.values()) / 1e3
+    print(f"[{tag} profile] {what}: device busy {total:.2f} of {wall:.2f} "
+          f"ms wall ({100 * total / wall:.1f} %)")
+    for name, t in sorted(us.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"   {t / 1e3:8.3f} ms ({100 * t / 1e3 / max(total, 1e-9):5.1f}"
+              f" %)  {name[:100]}")
+
+
+def dataset_phase(dev, mlp, mvsnet, failures):
+    """Phase 13; returns its entries of the kernels line."""
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dirs = write_dataset_scenes(tmp)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                      mvsnet)
+        print(f"[13 scenes] lego (800x800, 20 RGBA frames) and fern "
+              f"(960x640, 20 images) written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, white in (("blender", True), ("llff", False)):
+            records[name] = dataset_run(dev, mlp, mvsnet, name, dirs[name],
+                                        ckpt, white, tmp, failures)
+            torch.cuda.empty_cache()
+    # the kernel entries after every timed run: torch.profiler can leave
+    # CUPTI attached and slow later launches on the host
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    kernels = []
+    for name, rec in records.items():
+        kernels += dataset_kernel_entries(name, rec, failures)
+        h, w = rec["hw"]
+        rays = torch.from_numpy(rec["rays"]).to(dev)
+        for impl in ("auto", "dband"):
+            ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD,
+                           chunk=CHUNK, white_bkgd=rec["white"], device=dev,
+                           costreg_impl=impl)
+            call_profile(f"13 {name}", f"build_volume, U-Net on "
+                         f"{'cuDNN' if impl == 'auto' else impl}",
+                         lambda: ev.build_volume(*rec["src"]))
+        for mode in ("chunked", "tiled"):
+            call_profile(f"13 {name}", f"one {mode} request",
+                         lambda: ev.render(rays, h, w, mode=mode), top=4)
+        del ev, rays
+        torch.cuda.empty_cache()
+    print(f"[13 time] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return kernels
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3416,6 +3879,11 @@ def main():
     # ---- 12. fusion: the fuse of 16 views, its steps and renders
     torch.cuda.empty_cache()
     kernels += fusion_phase(dev, mlp, mvsnet, failures)
+
+    # ---- 13. the Blender and LLFF datasets: loaders, volumes, fine-tune,
+    # requests and the CLIs at 800x800 and 960x640
+    torch.cuda.empty_cache()
+    kernels += dataset_phase(dev, mlp, mvsnet, failures)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune
@@ -3453,6 +3921,7 @@ def main():
           f"relayout included; {k1_entry['device_ms_generalizable']:.4f} ms "
           f"on phase 7's sources); events now {k1_ms:.4f} ms, in phase 3 "
           f"{k1_entry['ms']:.4f}")
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed",
               file=sys.stderr)

@@ -67,6 +67,8 @@ SIGNATURES = {
     # g, x, w, scratch, its floats, work, its floats, dw, dx, N, n_splits,
     # n_weights, stream
     "mlp_v0_bwd": [_P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _P],
+    # Wi, Wo -> 1 when a stride-2 conv3d_fwd runs its pair kernel
+    "conv3d_s2_pairs": [_I, _I],
     # x, w, packed, y, Cin, Cout, Di, Hi, Wi, Do, Ho, Wo, stride, packed's
     # floats, stream
     "conv3d_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1147,6 +1147,13 @@ long long fwd_packed_floats(int Cin, int Cout, int stride) {
 
 }  // namespace
 
+// Whether a stride-2 conv3d_fwd from width Wi to Wo runs
+// conv3d_s2_pair_kernel (1) or the generic conv3d_fwd_kernel<2> (0): the
+// pair kernel reads 16-byte rows of two outputs' inputs
+extern "C" int conv3d_s2_pairs(int Wi, int Wo) {
+  return Wi % 4 == 0 && 2 * Wo == Wi;
+}
+
 // y (Cout, Do, Ho, Wo) = conv(x (Cin, Di, Hi, Wi), w (Cout, Cin, 3, 3, 3)),
 // stride 1 (Do = Di, ...) or 2, pad 1; packed: fwd_packed_floats floats
 // of scratch, which a stride-1 call fills with the split weights
@@ -1184,7 +1191,7 @@ extern "C" int conv3d_fwd(const void* x, const void* w, void* packed,
     }
 #undef K10_S1
   }
-  if (Wi % 4 == 0 && 2 * Wo == Wi) {
+  if (conv3d_s2_pairs(Wi, Wo)) {
     const long long n_pairs = n_out / 2;
     int cot, nt;
     s2_pair_plan(Cout, n_pairs, &cot, &nt);

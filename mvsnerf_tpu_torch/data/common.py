@@ -1,11 +1,11 @@
 """Shared data-loading utilities: image IO, PFM depth maps and MVSNet camera
-files, and the spiral and spheric render paths (counterpart of
-mvsnerf_tpu/data/common.py, the parts the dtu_ft loader and the video
-paths read). Numpy only; PIL is imported only inside `load_image`, so
-nothing else here needs it."""
+files, pose averaging and recentring, and the spiral and spheric render
+paths (counterpart of mvsnerf_tpu/data/common.py). Numpy only; PIL is
+imported only inside `load_image`, so nothing else here needs it."""
 
 from __future__ import annotations
 
+import io
 import re
 
 import numpy as np
@@ -21,37 +21,53 @@ def normalize_imagenet(img):
     return (img - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def load_image(path, wh=None, method="lanczos"):
-    """Load an RGB image to float32 (H, W, 3) in [0, 1]; optional resize
-    to `wh` = (W, H) with 'lanczos' (the per-scene loaders) or
-    'bilinear'."""
+def unnormalize_imagenet(img):
+    return img * IMAGENET_STD + IMAGENET_MEAN
+
+
+def load_image(path, wh=None, method="lanczos", keep_alpha=False):
+    """Load an image to float32 (H, W, C) in [0, 1]; optional resize to
+    `wh` = (W, H) with 'lanczos' (the per-scene loaders) or 'bilinear'.
+    An RGBA file is resized as RGBA (PIL resizes it premultiplied) and
+    keeps its alpha with `keep_alpha` (Blender's PNGs), else loses it after
+    the resize; other modes are converted to RGB first, unless
+    `keep_alpha`, which converts nothing (JAX data/common.py:30)."""
     from PIL import Image
 
     img = Image.open(path)
-    if img.mode != "RGB":
+    if not keep_alpha and img.mode not in ("RGB", "RGBA"):
         img = img.convert("RGB")
     if wh is not None:
         resample = Image.LANCZOS if method == "lanczos" else Image.BILINEAR
         img = img.resize(tuple(int(x) for x in wh), resample)
-    return np.asarray(img, np.float32) / 255.0
+    arr = np.asarray(img, np.float32) / 255.0
+    if not keep_alpha and arr.ndim == 3 and arr.shape[-1] == 4:
+        arr = arr[..., :3]
+    return arr
 
 
 def read_pfm(path):
     """PFM reader (reference utils.py:440-475 semantics): (data (H, W) or
     (H, W, 3) float32, scale)."""
     with open(path, "rb") as f:
-        header = f.readline().decode("latin-1").rstrip()
-        if header not in ("PF", "Pf"):
-            raise ValueError(f"not a PFM file: {path}")
-        m = re.match(r"^(\d+)\s(\d+)\s$", f.readline().decode("latin-1"))
-        if not m:
-            raise ValueError(f"malformed PFM header: {path}")
-        width, height = int(m.group(1)), int(m.group(2))
-        scale = float(f.readline().decode("latin-1").rstrip())
-        endian = "<" if scale < 0 else ">"
-        data = np.frombuffer(f.read(), endian + "f")
-        shape = (height, width, 3) if header == "PF" else (height, width)
-        data = np.flipud(data.reshape(shape))  # PFM stores bottom-up
+        return decode_pfm(f.read(), path)
+
+
+def decode_pfm(raw: bytes, name: str = "PFM bytes"):
+    """`read_pfm` of a PFM file's bytes."""
+    f = io.BytesIO(raw)
+    header = f.readline().decode("latin-1").rstrip()
+    if header not in ("PF", "Pf"):
+        raise ValueError(f"not a PFM file: {name}")
+    m = re.match(r"^(\d+)\s(\d+)\s$", f.readline().decode("latin-1"))
+    if not m:
+        raise ValueError(f"malformed PFM header: {name}")
+    width, height = int(m.group(1)), int(m.group(2))
+    scale = float(f.readline().decode("latin-1").rstrip())
+    endian = "<" if scale < 0 else ">"
+    data = np.frombuffer(f.read(), endian + "f")
+    shape = (height, width, 3) if header == "PF" else (height, width)
+    data = np.flipud(data.reshape(shape))  # PFM stores bottom-up
     return np.ascontiguousarray(data, np.float32), abs(scale)
 
 
@@ -95,18 +111,53 @@ def write_cam_file(path, intrinsic, extrinsic, depth_min, depth_interval):
         f.write(f"\n{depth_min} {depth_interval}\n")
 
 
-def resize_nearest(img, fx, fy):
+def resize_nearest(img, fx=None, fy=None, out_wh=None):
     """Nearest-neighbour resize matching cv2.resize INTER_NEAREST (the GT
-    depth pyramids, data/dtu.py:118-124)."""
+    depth pyramids, data/dtu.py:118-124), by factors `fx`, `fy` or to
+    `out_wh` = (W, H)."""
     h, w = img.shape[:2]
-    out_w, out_h = int(round(w * fx)), int(round(h * fy))
+    if out_wh is None:
+        out_w, out_h = int(round(w * fx)), int(round(h * fy))
+    else:
+        out_w, out_h = out_wh
     xs = np.minimum((np.arange(out_w) * (w / out_w)).astype(np.int64), w - 1)
     ys = np.minimum((np.arange(out_h) * (h / out_h)).astype(np.int64), h - 1)
     return img[ys[:, None], xs[None, :]]
 
 
+# Blender / OpenGL camera (x right, y up, z back) -> OpenCV (x right, y
+# down, z forward), right-multiplied onto a c2w
+BLENDER2OPENCV = np.array([[1, 0, 0, 0], [0, -1, 0, 0],
+                           [0, 0, -1, 0], [0, 0, 0, 1]], np.float64)
+
+
 def _normalize(v):
     return v / np.linalg.norm(v)
+
+
+def average_pose(poses):
+    """Mean camera pose of (N, 3, 4) poses (reference data/llff.py:17-51):
+    (3, 4) with the mean centre, the normalised mean z axis, y from the
+    mean y and x = y x z."""
+    center = poses[..., 3].mean(0)
+    z = _normalize(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = _normalize(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses, blender2opencv=BLENDER2OPENCV):
+    """Recentre (N, 3, 4) poses on their average pose, then convert them
+    with `blender2opencv` (data/llff.py:55-80): (the centred (N, 3, 4)
+    poses, the (4, 4) transform applied)."""
+    pose_avg_homo = np.eye(4)
+    pose_avg_homo[:3] = average_pose(poses)
+    last_row = np.tile(np.array([0, 0, 0, 1.0]), (len(poses), 1, 1))
+    poses_homo = np.concatenate([poses, last_row], 1)
+    centered = np.linalg.inv(pose_avg_homo) @ poses_homo
+    centered = centered @ blender2opencv
+    return centered[:, :3], np.linalg.inv(pose_avg_homo) @ blender2opencv
 
 
 def create_spiral_poses(radii, focus_depth, n_poses=120):

@@ -3,9 +3,9 @@ mvsnerf_tpu/data/dtu.py, reference data/dtu.py).
 
 Samples are channel-last numpy dicts; the trainer moves them to its
 device. The scan lists and source-view rankings are the port's copies
-under configs/ (`dtu_pairs.txt`, `lists/`). GT depths take the numpy
-route (PFM -> x0.5 nearest -> crop -> downSample); the JAX package's C++
-host library is not ported.
+under configs/ (`dtu_pairs.txt`, `lists/`). GT depths (PFM -> x0.5
+nearest -> crop -> downSample) go through the native host library
+(`mvsnerf_tpu_torch.native`) where it builds, else numpy.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 import numpy as np
 
 from .common import (load_image, normalize_imagenet, read_cam_file,
-                     read_pfm, resize_nearest)
+                     resize_nearest)
 
 CFG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -103,13 +103,12 @@ class MVSDatasetDTU:
     def read_depth(self, filename):
         """GT depth pyramid (data/dtu.py:116-127): PFM -> x0.5 nearest ->
         crop [44:556, 80:720] -> downSample; returns (depth at 1/4, its
-        mask, depth_h)."""
-        depth_h = read_pfm(filename)[0]
-        depth_h = resize_nearest(depth_h, 0.5, 0.5)
-        depth_h = depth_h[44:556, 80:720]
-        if self.downSample != 1.0:
-            depth_h = resize_nearest(depth_h, self.downSample,
-                                     self.downSample)
+        mask, depth_h). Through the native library, which takes its numpy
+        route where the library is not built; both give the same arrays."""
+        from .. import native
+        with open(filename, "rb") as f:
+            depth_full = native.pfm_decode(f.read())
+        depth_h = native.dtu_depth_pipeline(depth_full, self.downSample)
         depth = resize_nearest(depth_h, 0.25, 0.25)
         return depth, depth > 0, depth_h
 

@@ -24,7 +24,7 @@ from ..render.hybrid import make_hybrid_renderer
 from ..render.renderer import make_chunked_renderer
 from ..render.tiled import make_tiled_renderer
 from ..train.common import unpreprocess_images
-from ..utils.vis import panel, to8b, visualize_depth
+from ..utils.vis import panel, visualize_depth, write_png
 from .metrics import abs_error, acc_threshold, psnr, ssim
 
 RENDER_MODES = {"chunked": make_chunked_renderer,
@@ -175,7 +175,7 @@ class Evaluator:
             val_c2ws: the target poses (default `dataset.poses`).
             center_crop: Blender's 80 % crop before the metrics.
             save_dir: where to write each image's [gt | pred | depth]
-                panel as a PNG (imageio).
+                panel as a PNG.
         Returns:
             {"per_image": [metrics dict per image], "mean": {...}}.
         """
@@ -198,12 +198,11 @@ class Evaluator:
             results.append(self._score(pred, gt, depth, sample, lpips_fn,
                                        center_crop))
             if save_dir:
-                import imageio.v2 as imageio
                 os.makedirs(save_dir, exist_ok=True)
                 dvis, _ = visualize_depth(
                     depth, tuple(self.scene[2].cpu().numpy()))
-                imageio.imwrite(os.path.join(save_dir, f"{i:03d}.png"),
-                                to8b(panel([gt, pred, dvis])))
+                write_png(os.path.join(save_dir, f"{i:03d}.png"),
+                          panel([gt, pred, dvis]))
         mean = {k: float(np.mean([r[k] for r in results]))
                 for k in results[0]}
         return {"per_image": results, "mean": mean}

@@ -1,7 +1,7 @@
 """Free-viewpoint video (counterpart of mvsnerf_tpu/eval/video.py,
 reference renderer_video.ipynb): a pose path rendered frame by frame
-through a system's `render_image`, and written with imageio when a path
-is given (imageio is imported by the writer only)."""
+through a system's `render_image`, and written when a path is given
+(`write_frames`, which alone imports imageio or PIL)."""
 
 from __future__ import annotations
 
@@ -46,16 +46,20 @@ def make_path(kind: str, dataset=None, n_frames: int = 60, **kw):
 
 
 def write_frames(out_path: str, frames) -> str:
-    """Write uint8 frames as a video at `FPS` (a GIF where imageio has no
-    video backend: neither imageio-ffmpeg nor PyAV is installed); returns
-    the path written."""
-    import imageio.v2 as imageio
+    """Write uint8 frames as a video at `FPS` with imageio where it has a
+    video backend (imageio-ffmpeg or PyAV), else as a GIF with PIL (the
+    card's machine has PIL, not imageio); returns the path written."""
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    if any(importlib.util.find_spec(m) for m in ("imageio_ffmpeg", "av")):
+    if importlib.util.find_spec("imageio") and any(
+            importlib.util.find_spec(m) for m in ("imageio_ffmpeg", "av")):
+        import imageio.v2 as imageio
         imageio.mimwrite(out_path, frames, fps=FPS, quality=8)
-    else:
-        out_path = os.path.splitext(out_path)[0] + ".gif"
-        imageio.mimwrite(out_path, frames, duration=1000.0 / FPS)
+        return out_path
+    from PIL import Image
+    out_path = os.path.splitext(out_path)[0] + ".gif"
+    first, *rest = (Image.fromarray(np.asarray(f)) for f in frames)
+    first.save(out_path, save_all=True, append_images=rest,
+               duration=1000.0 / FPS, loop=0)
     return out_path
 
 

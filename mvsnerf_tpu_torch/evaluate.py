@@ -4,10 +4,14 @@ reference renderer.ipynb cells 4-18), with the same flags:
     python -m mvsnerf_tpu_torch.evaluate --dataset_name dtu_ft \\
         --datadir /data/dtu/scan1 --ckpt /path/mvsnerf-v0.tar --pad 24 \\
         --render_mode tiled
+    python -m mvsnerf_tpu_torch.evaluate --dataset_name blender \\
+        --datadir /data/nerf_synthetic/lego --ckpt /path/mvsnerf-v0.tar \\
+        --white_bkgd --pad 24
 
 By default each validation image is rendered from the 3 training views
 nearest it (the notebook protocol), the volume rebuilt per image;
-`--fixed_sources` keeps the scene's default 3 sources. `--render_mode`
+`--fixed_sources` keeps the scene's default 3 sources. The val split of
+`dtu_ft`, `blender` (scored on its central 80 %) or `llff`. `--render_mode`
 picks `chunked`, `hybrid` or `tiled`. LPIPS is scored when
 `--lpips_weights` (default lpips_vgg.npz) exists. Runs on the CUDA card
 (`--device cpu` runs on the CPU; with no card and no `--device cpu` it
@@ -24,12 +28,10 @@ import numpy as np
 
 from . import resolve_device
 from .config import config_parser
-from .data.dtu_ft import DTUFTDataset
+from .data import per_scene_dataset
 from .data.pairs import get_split
 from .eval.evaluate import Evaluator
 from .io.torch_ckpt import load_reference_checkpoint
-
-DATASETS = {"dtu_ft": DTUFTDataset}
 
 
 def train_split_info(ds, args):
@@ -64,13 +66,11 @@ def lpips_metric(args, device):
 
 def main(argv=None):
     args = config_parser(argv)
-    if args.dataset_name not in DATASETS:
-        raise NotImplementedError(f"--dataset_name {args.dataset_name}: "
-                                  f"only {sorted(DATASETS)} is ported")
+    dataset = per_scene_dataset(args.dataset_name)
     device = resolve_device(args.device)
     mlp, mvsnet, _ = load_reference_checkpoint(args.ckpt, device,
                                                args.costreg_impl)
-    val_ds = DATASETS[args.dataset_name](args, "val")
+    val_ds = dataset(args, "val")
     evaluator = Evaluator(mvsnet, mlp, n_samples=args.N_samples,
                           pad=args.pad, white_bkgd=args.white_bkgd,
                           chunk=args.chunk * 5, device=device,

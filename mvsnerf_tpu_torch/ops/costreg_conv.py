@@ -48,6 +48,11 @@ from .._build import check, library, stream_of
 # kernel launches by kernel: conv3d_fwd at stride 1 and 2, conv3d_up,
 # conv3d_wgrad (which runs its partial-sum and reduction kernels together)
 launches = {"s1": 0, "s2": 0, "up": 0, "wgrad": 0}
+# the stride-2 conv3d_fwd launches by route (csrc/conv3d.cu
+# `conv3d_s2_pairs`): "pair", conv3d_s2_pair_kernel (input widths that are
+# a multiple of 4, DTU's 208 -> 104 -> 52); "generic", conv3d_fwd_kernel<2>
+# (the others, Blender's 62 -> 31)
+s2_routes = {"pair": 0, "generic": 0}
 
 
 # input channels per chunk of the tensor-core kernels' K (forward) and M
@@ -209,6 +214,9 @@ def conv3d_fwd_kernel(x, w, stride, packed=None):
                               stream_of(x))
     check(rc, "conv3d_fwd")
     launches[f"s{stride}"] += 1
+    if stride == 2:
+        pairs = library().conv3d_s2_pairs(x.shape[4], size[2])
+        s2_routes["pair" if pairs else "generic"] += 1
     return y
 
 

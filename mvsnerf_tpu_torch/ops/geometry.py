@@ -7,6 +7,7 @@ half-pixel centred).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,6 +37,30 @@ def get_rays(directions, c2w):
     rays_d = (directions @ c2w[:3, :3].T).reshape(-1, 3)
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def get_ndc_rays(h: int, w: int, focal, near, rays_o, rays_d):
+    """NeRF's NDC reparameterisation of (..., 3) rays for forward-facing
+    scenes (mvsnerf_tpu/ops/geometry.py:54, reference ray_utils.py:56-94):
+    each origin moved to the plane z = -near, then origins and directions
+    mapped into the [-1, 1] cube. `focal` is (fx, fy). Takes tensors,
+    which keep their device, or numpy arrays (LLFF's loader, JAX
+    data/llff.py:20), which promote float32 rays to float64 with a float64
+    focal as JAX's loader does. Returns (rays_o, rays_d)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+    o0 = -1.0 / (w / (2.0 * focal[0])) * ox_oz
+    o1 = -1.0 / (h / (2.0 * focal[1])) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (w / (2.0 * focal[0])) * (rays_d[..., 0] / rays_d[..., 2]
+                                          - ox_oz)
+    d1 = -1.0 / (h / (2.0 * focal[1])) * (rays_d[..., 1] / rays_d[..., 2]
+                                          - oy_oz)
+    d2 = 1.0 - o2
+    stack = torch.stack if isinstance(rays_o, torch.Tensor) else np.stack
+    return stack([o0, o1, o2], -1), stack([d0, d1, d2], -1)
 
 
 def rays_from_pixels(xs, ys, intrinsic, c2w):

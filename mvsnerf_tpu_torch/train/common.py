@@ -25,7 +25,9 @@ class RayBatchIterator:
     replacement for the reference's DataLoader(batch_size=1024) over the
     per-scene datasets. Infinite; reshuffles each epoch with the same
     `default_rng(seed)` permutations as the JAX package's iterator, so one
-    seed gives the same batches in both."""
+    seed gives the same batches in both. A {rays, rgbs} pair is gathered by
+    `native.ray_gather` (JAX train/common.py:47-54), which equals numpy's
+    gather bit for bit and takes it where the library is not built."""
 
     def __init__(self, arrays: dict, batch_size: int, seed: int = 0):
         self.arrays = arrays
@@ -44,6 +46,11 @@ class RayBatchIterator:
             self._pos = 0
         idx = self._perm[self._pos: self._pos + self.batch_size]
         self._pos += self.batch_size
+        if set(self.arrays) == {"rays", "rgbs"}:
+            from .. import native
+            rays, rgbs = native.ray_gather(self.arrays["rays"],
+                                           self.arrays["rgbs"], idx)
+            return {"rays": rays, "rgbs": rgbs}
         return {k: v[idx] for k, v in self.arrays.items()}
 
 

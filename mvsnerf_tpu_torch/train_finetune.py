@@ -5,6 +5,15 @@ with the same flags:
     python -m mvsnerf_tpu_torch.train_finetune --dataset_name dtu_ft \\
         --datadir /data/dtu/scan1 --expname scan1-ft --with_rgb_loss \\
         --ckpt /path/mvsnerf-v0.tar --batch_size 1024 --pad 24
+    python -m mvsnerf_tpu_torch.train_finetune --dataset_name llff \\
+        --datadir /data/nerf_llff_data/horns --expname horns-ft \\
+        --with_rgb_loss --ckpt /path/mvsnerf-v0.tar --pad 24
+    python -m mvsnerf_tpu_torch.train_finetune --dataset_name blender \\
+        --datadir /data/nerf_synthetic/lego --expname lego-ft --white_bkgd \\
+        --with_rgb_loss --ckpt /path/mvsnerf-v0.tar --pad 24
+
+`--dataset_name` takes the per-scene datasets `dtu_ft`, `blender` and
+`llff` (data/__init__.py's `dataset_dict`).
 
 Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 `--device cpu` it raises). Writes
@@ -24,23 +33,17 @@ import os
 
 from . import resolve_device
 from .config import config_parser
-from .data.dtu_ft import DTUFTDataset
+from .data import per_scene_dataset
 from .train.finetune import FinetuneSystem, psnr
 from .utils.logging import MetricLogger
 
-DATASETS = {"dtu_ft": DTUFTDataset}
-
-
 def main(argv=None):
     args = config_parser(argv)
-    if args.dataset_name not in DATASETS:
-        raise NotImplementedError(f"--dataset_name {args.dataset_name}: "
-                                  f"only {sorted(DATASETS)} is ported")
+    dataset = per_scene_dataset(args.dataset_name)
     device = resolve_device(args.device)
     log_dir = os.path.join("runs_fine_tuning", args.expname or "exp")
     logger = MetricLogger(log_dir)
 
-    dataset = DATASETS[args.dataset_name]
     train_ds, val_ds = dataset(args, "train"), dataset(args, "val")
     system = FinetuneSystem(args, train_ds, val_ds, device=device)
     ckpt_dir = os.path.join(log_dir, "ckpts")

@@ -14,7 +14,8 @@ Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 snapshots under `runs_fine_tuning/<expname>/ckpts/`, and resumes from the
 newest of them. `--N_importance N` adds N importance samples a ray drawn
 from a density volume refreshed every 500 steps; `--render_mode tiled`
-renders the validation views through K6b.
+renders the validation views through K6b. It takes `--dataset_name
+dtu_ft` only, as JAX's does (the other datasets raise, saying why).
 """
 
 from __future__ import annotations
@@ -23,22 +24,23 @@ import os
 
 from . import resolve_device
 from .config import config_parser
+from .data.dtu_ft import DTUFTDataset
 from .train.fusion import FusionFinetuneSystem
-from .train_finetune import DATASETS
 from .utils.logging import MetricLogger
 
 
 def main(argv=None):
     args = config_parser(argv)
-    if args.dataset_name not in DATASETS:
-        raise NotImplementedError(f"--dataset_name {args.dataset_name}: "
-                                  f"only {sorted(DATASETS)} is ported")
+    if args.dataset_name != "dtu_ft":
+        raise NotImplementedError(
+            f"--dataset_name {args.dataset_name}: fusion runs on dtu_ft "
+            "only: it reads the training dataset's near_far and bbox_3d "
+            "(mvsnerf_tpu/train/fusion.py:104-105), which only dtu_ft has")
     device = resolve_device(args.device)
     log_dir = os.path.join("runs_fine_tuning", args.expname or "exp")
     logger = MetricLogger(log_dir)
 
-    dataset = DATASETS[args.dataset_name]
-    train_ds, val_ds = dataset(args, "train"), dataset(args, "val")
+    train_ds, val_ds = DTUFTDataset(args, "train"), DTUFTDataset(args, "val")
     system = FusionFinetuneSystem(args, train_ds, val_ds, device=device)
     ckpt_dir = os.path.join(log_dir, "ckpts")
     n_steps = args.max_steps or 10000

@@ -11,8 +11,9 @@ Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 loss, MSE, PSNR and depth loss every 100 steps; val PSNR every
 `--val_every` steps, at each epoch end and after the last step) and
 snapshots under `runs_new/<expname>/ckpts/`, and resumes from the newest of
-them by default. Only `--dataset_name dtu` is ported; the validation
-panels are not, and `--num_devices` above 1 (data parallelism) is refused.
+them by default. It takes `--dataset_name dtu` only, as JAX's does
+(the per-scene datasets raise, saying why); the validation panels are not
+ported, and `--num_devices` above 1 (data parallelism) is refused.
 """
 
 from __future__ import annotations
@@ -32,8 +33,15 @@ from .utils.logging import MetricLogger
 def main(argv=None):
     args = config_parser(argv)
     if args.dataset_name != "dtu":
-        raise NotImplementedError(f"--dataset_name {args.dataset_name}: "
-                                  "only dtu is ported")
+        raise NotImplementedError(
+            f"--dataset_name {args.dataset_name}: generalizable training "
+            "runs on dtu only: its step reads multi-view samples with "
+            "per-view projections, near/far and poses "
+            "(mvsnerf_tpu/train/generalizable.py:100-104), which only "
+            "MVSDatasetDTU gives, and the JAX CLI builds its dataset as "
+            "MVSDatasetDTU's constructor takes it (train_mvs_nerf.py:27-30); "
+            "dtu_ft, blender and llff are per-scene datasets for "
+            "train_finetune")
     if args.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: data-parallel training is "

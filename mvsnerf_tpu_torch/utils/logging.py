@@ -36,10 +36,8 @@ class MetricLogger:
     def save_panel(self, step: int, name: str, image):
         """Write an (H, W, 3) [0, 1] image as `<log_dir>/<name>_<step>.png`
         (JAX utils/logging.py:58, reference train_mvs_nerf_pl.py:247-250);
-        returns the path. imageio is imported here only."""
-        import imageio.v2 as imageio
-        import numpy as np
+        returns the path."""
+        from .vis import write_png
         path = os.path.join(self.log_dir, f"{name}_{step:08d}.png")
-        imageio.imwrite(path, (np.clip(np.asarray(image), 0, 1) * 255)
-                        .astype(np.uint8))
+        write_png(path, image)
         return path

@@ -44,6 +44,13 @@ def visualize_depth(depth, minmax=None):
     return jet(x).astype(np.float32), (mi, ma)
 
 
+def write_png(path, img):
+    """Write an (H, W, 3) [0, 1] image as an 8-bit PNG with PIL (imported
+    here only; the card's machine has PIL, not imageio)."""
+    from PIL import Image
+    Image.fromarray(to8b(img)).save(path)
+
+
 def panel(images, axis=1):
     """Concatenate same-height images into a [a | b | c] strip."""
     return np.concatenate([np.asarray(im) for im in images], axis=axis)

@@ -1,8 +1,9 @@
 """The port imports torch, numpy and scipy only: never jax, never
-mvsnerf_tpu, and none of matplotlib, imageio or PIL (the card's machine
-has none of them; the video writer and the image loader import theirs
-inside the function); importing a kernel module builds nothing (this
-machine has no nvcc)."""
+mvsnerf_tpu, and none of matplotlib, imageio or PIL at import (the card's
+machine has PIL but neither matplotlib nor imageio; the image loader, the
+scene writers and the PNG and video writers import theirs inside the
+function); importing a kernel module or the native host library builds
+nothing (this machine has no nvcc)."""
 
 import os
 import subprocess
@@ -53,6 +54,11 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.render_video",
     "mvsnerf_tpu_torch.train.fusion",
     "mvsnerf_tpu_torch.train_fusion",
+    "mvsnerf_tpu_torch.data",
+    "mvsnerf_tpu_torch.data.blender",
+    "mvsnerf_tpu_torch.data.llff",
+    "mvsnerf_tpu_torch.data.synthetic",
+    "mvsnerf_tpu_torch.native",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,16 +84,26 @@ def test_port_never_imports_jax():
 
 
 def test_port_never_imports_pil():
-    """The card's machine has no PIL, matplotlib or imageio: only
-    `data.common.load_image` (PIL) and the writers of `eval.video` and
-    `Evaluator.evaluate`'s panels (imageio), which chip_smoke.py never
-    calls, import one."""
+    """The card's machine has no matplotlib or imageio: only
+    `data.common.load_image`, `data.synthetic`'s writers,
+    `utils.vis.write_png` (PIL) and `eval.video.write_frames` (imageio
+    where it has a video backend, else PIL) import one, inside the
+    function."""
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('PIL', 'matplotlib', 'imageio'))\n"
             "assert not bad, bad\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+def test_native_imports_without_building():
+    code = ("import mvsnerf_tpu_torch.native as n\n"
+            "import mvsnerf_tpu_torch.train.common, mvsnerf_tpu_torch.data\n"
+            "assert n._lib is None and not n._build_failed\n"
             "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr

@@ -370,18 +370,22 @@ def test_render_forms_match_twin_and_float64_on_the_card(card, form, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("call", ["conv3 forward", "conv9 dgrad",
-                                  "odd width"])
+                                  "odd width", "Blender conv5"])
 def test_k10_stride2_matches_plain_on_the_card(card, call):
     from mvsnerf_tpu_torch.ops import costreg_conv as cc
     rng = np.random.default_rng(len(call))
     if call == "odd width":  # W % 4 != 0: the per-output kernel
         x = rng.standard_normal((1, 8, 9, 10, 14))
         w = rng.standard_normal((16, 8, 3, 3, 3)) / math.sqrt(8 * 27)
+    elif call == "Blender conv5":  # the U-Net at 800x800: W = 62
+        x = rng.standard_normal((1, 32, 32, 62, 62))
+        w = rng.standard_normal((64, 32, 3, 3, 3)) / math.sqrt(32 * 27)
     else:  # Conv3d (32, 16, 3, 3, 3), or ConvTranspose3d's as stored
         x = rng.standard_normal((1, 16, 64, 88, 104))
         w = rng.standard_normal((32, 16, 3, 3, 3)) / math.sqrt(16 * 27)
     x, w = (torch.tensor(a.astype(np.float32), device=card) for a in (x, w))
     before = cc.launches["s2"]
+    routes = dict(cc.s2_routes)
     if call == "conv9 dgrad":  # through conv3d_up's backward: x is d y
         inp = torch.zeros((1, 32, 32, 44, 52), device=card,
                           requires_grad=True)
@@ -390,6 +394,8 @@ def test_k10_stride2_matches_plain_on_the_card(card, call):
         got = cc.conv3d_fwd_kernel(x, w, 2)
     torch.cuda.synchronize()
     assert cc.launches["s2"] == before + 1
+    route = "pair" if x.shape[4] % 4 == 0 else "generic"
+    assert cc.s2_routes == {**routes, route: routes[route] + 1}
     twin = cc.conv3d_fwd_plain(x.double(), w.double(), 2)
     assert got.shape == twin.shape
     tol = TOL_K10 * (1 + float(twin.abs().max()))
