@@ -11,7 +11,9 @@ dband`), the colour-baked volume with the eval and video entry points,
 the render's gradient in its source images (K4's backward), the
 density volume with importance sampling and `--use_disp`, and the fusion
 trainer; then the Blender (800x800) and LLFF (960x640) datasets through
-their loaders, the fine-tune trainer, every render mode and the CLIs.
+their loaders, the fine-tune trainer, every render mode and the CLIs;
+then data-parallel training and the ray-sharded render, and the v1, v2
+and fusion MLPs.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -182,6 +184,25 @@ their loaders, the fine-tune trainer, every render mode and the CLIs.
      dataset's volume and K10's generic stride-2 call against their twins
      and cuDNN, and `torch.profiler` over a volume build on each route and
      a chunked and a tiled request.
+ 14. data parallelism and the MLPs other than v0: (a) NCCL at world size 1
+     (a `file://` store): one generalizable step at phase 7's
+     configuration through `parallel/`'s all-reduce against today's step
+     from one state and draws (the all-reduce must leave every gradient
+     bit-equal; the steps are held to STEP_TOL and TOL_STEP_GRAD where
+     they are not bit-equal), 10 steps of each in turns, the all-reduce's
+     device time and byte count, and `fit` on the path with its launches;
+     (b) two gloo ranks on the one card (spawned processes; gloo
+     all-reduces CUDA tensors through the host): 3 steps of `fit`, the
+     first step's averaged gradients against both ranks' recomputed in one
+     process from the same draws (TOL_STEP_GRAD), the parameters
+     bit-equal on both ranks, and `shard_rays_render` of one 640x512
+     request against rank 0's one-process chunked render (TOL_K6); (c)
+     the v1, v2 and fusion MLPs at full width: a 640x512 chunked request
+     each (K1, K4 and the module's MLP) held to the same request on K4's
+     twin, 10 timed `--net_type v2` fine-tune steps (K4, K5 and the
+     module's MLP under autograd), `evaluate --net_type v2` through the
+     CLI on an LLFF scene at 960x640 (and its `tiled` mode refused); K6,
+     K6b, K7 and K8 never launch for these MLPs.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -305,6 +326,12 @@ DATASET_WH = {"blender": (800, 800), "llff": (960, 640)}
 CLI_STEPS, CLI_FRAMES = 3, 3
 # volume builds timed a route after the counted one
 BUILD_AGAIN = 2
+# phase 14: data parallelism at phase 7's configuration (DP_TIMED steps a
+# way, in turns; DP_RANKS gloo ranks on the one card for DP_STEPS steps),
+# and the MLPs other than v0 at phase 6's width (MLP_STEPS timed fine-tune
+# steps)
+DP_TIMED, DP_RANKS, DP_STEPS, MLP_STEPS = 10, 2, 3, 10
+MLP_TYPES = ("v1", "v2", "fusion")
 
 
 def require(cond, msg):
@@ -1195,8 +1222,6 @@ def step_grads(system, state0, batch, draws, twins, f64=False):
     from mvsnerf_tpu_torch.ops import costreg_conv as k10
     from mvsnerf_tpu_torch.ops import sweep as k12
     mv = system.mvsnet
-    parts = {"MLP": system.mlp, "CostRegNet": mv.cost_reg_2,
-             "FeatureNet": mv.feature}
     system.load_state(state0)
     b, d = batch, draws
     if f64:
@@ -1219,9 +1244,7 @@ def step_grads(system, state0, batch, draws, twins, f64=False):
             depth=float(aux["depth_loss"].detach()),
             k2=k12.sweep_cost_volume.bwd_launches - launched,
             k10={key: n - k10_before[key] for key, n in k10.launches.items()},
-            **{n: torch.cat([q.grad.reshape(-1).double()
-                             for q in m.parameters()])
-               for n, m in parts.items()})
+            **grads_by_part(system))
     finally:
         if f64:
             torch.set_default_dtype(torch.float32)
@@ -1320,10 +1343,10 @@ def unet_spans(names):
     return inside
 
 
-def generalizable_system(dev, mlp, mvsnet, extra=""):
+def generalizable_system(dev, mlp, mvsnet, extra="", mesh=None):
     """A `GeneralizableSystem` from a reference-format checkpoint of the
     seeded weights at bench.py's generalizable configuration, with `extra`
-    flags."""
+    flags (data-parallel over `mesh` when given)."""
     import tempfile
 
     from mvsnerf_tpu_torch.config import config_parser
@@ -1335,7 +1358,7 @@ def generalizable_system(dev, mlp, mvsnet, extra=""):
             f"--dataset_name dtu --pad {PAD} --N_samples {N_SAMPLES} "
             f"--batch_size {GEN_BATCH} --with_depth_loss --with_depth "
             f"--net_type v0 --ckpt {ckpt} {extra}")
-        return GeneralizableSystem(args, device=dev)
+        return GeneralizableSystem(args, device=dev, mesh=mesh)
 
 
 def generalizable_phase(dev, mlp, mvsnet, failures):
@@ -3609,6 +3632,465 @@ def dataset_phase(dev, mlp, mvsnet, failures):
     print(f"[13 time] phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return kernels
 
+def grads_by_part(system):
+    """The MLP's, CostRegNet's and FeatureNet's gradients, each one flat
+    float64 vector."""
+    import torch
+    mv = system.mvsnet
+    return {n: torch.cat([q.grad.reshape(-1).double() for q in m.parameters()])
+            for n, m in (("MLP", system.mlp), ("CostRegNet", mv.cost_reg_2),
+                         ("FeatureNet", mv.feature))}
+
+
+def flat_params(system, grads=False):
+    """Every parameter of the MLP and the MVSNet (or its gradient), one
+    flat vector."""
+    import torch
+    return torch.cat([(p.grad if grads else p.detach()).reshape(-1)
+                      for m in (system.mlp, system.mvsnet)
+                      for p in m.parameters()])
+
+
+def hold_grads(phase, what, ours, ref, failures):
+    """Per part: max |ours - ref| <= TOL_STEP_GRAD x max|ref|."""
+    errs = {n: (max_err(ours[n], ref[n]), float(ref[n].abs().max()))
+            for n in ref}
+    print(f"[{phase}] {what}: " + ", ".join(
+        f"{n} {e:.2e} of max|g| {g:.3e}" for n, (e, g) in errs.items()) +
+        f" (tol {TOL_STEP_GRAD:.0e} x max|g|)")
+    check(all(e <= TOL_STEP_GRAD * g and g > 0 for e, g in errs.values()),
+          f"[{phase}] {what}: the gradients disagree", failures)
+
+
+def dp_counters():
+    """The generalizable step's launch counters."""
+    from mvsnerf_tpu_torch.ops import mlp_train as k7
+    from mvsnerf_tpu_torch.ops import render_fused as rf
+    from mvsnerf_tpu_torch.ops import volume_gather as k5
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp
+    from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume
+    return {"K1": (sweep_cost_volume, "launches"),
+            "K2": (sweep_cost_volume, "bwd_launches"),
+            "K4": (color_warp, "launches"),
+            "K5 fwd": (k5.sample_volume, "launches"),
+            "K5 bwd": (k5.sample_volume, "bwd_launches"),
+            "K6": (rf.render_v0, "launches"),
+            "K6b": (rf.render_v0, "baked_launches"),
+            "K7 fwd": (k7.mlp_v0_train, "launches"),
+            "K7 bwd": (k7.mlp_v0_train, "bwd_launches"),
+            "K8": (rf.render_v0_feats, "launches")}
+
+
+def dp_single_rank(dev, mlp, mvsnet, sample, failures, gen_step_ms):
+    """Phase 14 (a): NCCL at world size 1 (a `file://` store): the step
+    through the data-parallel path against today's step, 10 steps of each
+    in turns, the all-reduce's device time, and `fit` on the path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from mvsnerf_tpu_torch.parallel import init_distributed, make_mesh
+    from mvsnerf_tpu_torch.train import generalizable as gmod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        require(init_distributed(f"file://{tmp}/store", 0, 1,
+                                 local_rank=dev.index or 0, device=dev),
+                "init_distributed at world size 1 did not start a group")
+        try:
+            require(dist.get_backend() == "nccl",
+                    f"backend {dist.get_backend()}, not nccl")
+            mesh = make_mesh()
+            dp = generalizable_system(dev, mlp, mvsnet, mesh=mesh)
+            plain = generalizable_system(dev, mlp, mvsnet)
+            batch = plain.batch(sample)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+            draws = plain.draw(batch, gen)
+            reduced = {}
+            allreduce = gmod.allreduce_mean
+
+            def noting(params, *a, **kw):
+                before = [p.grad.clone() for p in params
+                          if p.grad is not None]
+                out = allreduce(params, *a, **kw)
+                after = [p.grad for p in params if p.grad is not None]
+                reduced.update(bytes=out[1], exact=all(
+                    torch.equal(x, y) for x, y in zip(before, after)))
+                return out
+
+            steps = {}
+            with swapped(gmod, "allreduce_mean", noting):
+                for name, system in (("data-parallel", dp),
+                                     ("one process", plain)):
+                    loss, _ = system._step(batch, *draws)
+                    steps[name] = dict(loss=float(loss),
+                                       grads=grads_by_part(system),
+                                       g=flat_params(system, grads=True),
+                                       params=flat_params(system))
+            a, b = steps["data-parallel"], steps["one process"]
+            bit = a["loss"] == b["loss"] and torch.equal(
+                a["params"], b["params"]) and all(
+                torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+            # Adam's first update is lr * g / (|g| + 1e-8): where |g| is
+            # near 1e-8, run-to-run float32 differences of g (K2's and K5's
+            # atomics, cuDNN's backward) move the update by up to lr; the
+            # rest agree to STEP_TOL x lr (phase 6's rule)
+            lr = plain.args.lrate
+            firm = b["g"].abs() > 1e-7
+            p_err = max_err(a["params"][firm], b["params"][firm])
+            p_all = max_err(a["params"], b["params"])
+            print(f"[14 dp1] one step from one state and draws, NCCL at "
+                  f"world size 1 against one process: loss {a['loss']:.7f} / "
+                  f"{b['loss']:.7f}; bit-equal {bit}; the all-reduce of "
+                  f"{reduced['bytes']} bytes (one flat float32 buffer) left "
+                  f"every gradient bit-equal: {reduced['exact']}; params max "
+                  f"diff where |g| > 1e-7 {p_err:.2e} (tol STEP_TOL x lr "
+                  f"{STEP_TOL * lr:.1e}), elsewhere {p_all:.2e} (tol 2 lr)")
+            check(reduced.get("exact") is True, "[14] the all-reduce at one "
+                  "rank changed a gradient", failures)
+            check(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]) and
+                  p_err <= STEP_TOL * lr and p_all <= 2 * lr,
+                  "[14] the data-parallel step and today's disagree",
+                  failures)
+            if not bit:
+                hold_grads("14 dp1", "data-parallel vs one process",
+                           a["grads"], b["grads"], failures)
+
+            def steps_ms(system):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_TIMED):
+                    system._step(batch, *draws)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / DP_TIMED
+
+            times = {"data-parallel": [], "one process": []}
+            for name in ("data-parallel", "one process", "one process",
+                         "data-parallel"):
+                times[name].append(steps_ms(dp if name == "data-parallel"
+                                            else plain))
+            print(f"[14 dp1] ms/step over {DP_TIMED} steps in turns: " +
+                  "; ".join(f"{n} {[round(t, 2) for t in ts]}"
+                            for n, ts in times.items()) +
+                  f" (phase 7's fit: {gen_step_ms:.2f})")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                dp._step(batch, *draws)
+                torch.cuda.synchronize()
+            dev_events = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+            nccl = [e for e in dev_events if "nccl" in e.name.lower() or
+                    "allreduce" in e.name.lower()]
+            total = sum(e.time_range.elapsed_us() for e in dev_events)
+            print(f"[14 dp1] all-reduce on the device (torch.profiler, one "
+                  f"step): {sum(e.time_range.elapsed_us() for e in nccl) / 1e3:.4f}"
+                  f" ms in {len(nccl)} kernel(s) "
+                  f"{sorted({e.name[:60] for e in nccl})} of "
+                  f"{total / 1e3:.2f} ms of kernels; buffer "
+                  f"{reduced['bytes']} bytes")
+            # the main path: fit through the data-parallel step
+            counters = dp_counters()
+            zero_counts(counters)
+            losses = dp.fit([sample], num_epochs=DP_STEPS, seed=SEED,
+                            max_steps=DP_STEPS)
+            counts = read_counts(counters)
+            print(f"[14 dp1] fit: {len(losses)} steps, loss "
+                  f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}")
+            check(len(losses) == DP_STEPS and
+                  all(math.isfinite(v) for v in losses),
+                  "[14] the data-parallel fit returned a non-finite loss",
+                  failures)
+            for k in ("K1", "K2", "K4", "K5 fwd", "K5 bwd", "K7 fwd",
+                      "K7 bwd"):
+                check(counts[k] > 0, f"[14] {k} never launched on the "
+                      "data-parallel path", failures)
+            del dp, plain, batch, steps, a, b
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def dp_rank(rank, tmp):
+    """Phase 14 (b), one of DP_RANKS gloo ranks on the one card (a spawned
+    process): 3 data-parallel steps, the first step's averaged gradients,
+    on rank 0 every rank's gradients recomputed in one process from the
+    same draws, and `shard_rays_render` of one 640x512 request against
+    rank 0's one-process chunked render; results saved to tmp."""
+    import torch
+    import torch.distributed as dist
+    from mvsnerf_tpu_torch import set_precision_policy
+    from mvsnerf_tpu_torch.config import config_parser
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.parallel import (init_distributed, make_mesh,
+                                            rank_seed, shard_rays_render)
+    from mvsnerf_tpu_torch.train import generalizable as gmod
+    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
+    set_precision_policy()
+    dev = torch.device("cuda", 0)
+    init_distributed(f"file://{tmp}/store", rank, DP_RANKS, local_rank=0,
+                     device=dev, backend="gloo")
+    out = {"backend": dist.get_backend()}
+    try:
+        mesh = make_mesh(device_type="cuda")
+        sample = dict(np.load(os.path.join(tmp, "sample.npz")))
+
+        def system(batch_size, mesh=None):
+            args = config_parser(
+                f"--dataset_name dtu --pad {PAD} --N_samples {N_SAMPLES} "
+                f"--batch_size {batch_size} --with_depth_loss --with_depth "
+                f"--ckpt {os.path.join(tmp, 'seeded.tar')}")
+            return GeneralizableSystem(args, device=dev, mesh=mesh)
+
+        dp = system(GEN_BATCH, mesh)
+        first = {}
+        allreduce = gmod.allreduce_mean
+
+        def recording(*a, **kw):  # the first step's averaged gradients
+            res = allreduce(*a, **kw)
+            if not first:
+                first.update(grads_by_part(dp))
+            return res
+
+        counters = dp_counters()
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with swapped(gmod, "allreduce_mean", recording):
+            out["losses"] = dp.fit([sample], num_epochs=DP_STEPS, seed=SEED,
+                                   max_steps=DP_STEPS)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches"] = read_counts(counters)
+        out["params"] = flat_params(dp).cpu()
+        out["grads"] = {k: v.cpu() for k, v in first.items()}
+
+        imgs_norm, projs, pose_src = make_scene(np.random.default_rng(SEED))
+        ev = Evaluator(dp.mvsnet, dp.mlp, n_samples=N_SAMPLES, pad=PAD,
+                       n_planes=N_PLANES, chunk=CHUNK, device=dev)
+        with torch.no_grad():
+            ev.build_volume(imgs_norm, projs, NEAR_FAR, pose_src)
+            rays = rays_for_pose(pose(0, 0.02, 0.1),
+                                 pose_src["intrinsics"][0], H, W, dev)
+            sharded = shard_rays_render(
+                lambda r: ev.render(r, 1, r.shape[0], "chunked"), mesh)
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sharded(rays)
+            torch.cuda.synchronize()
+            out["sharded_ms"] = (time.perf_counter() - t0) * 1e3
+            out["render_launches"] = read_counts(counters)
+            out["sharded"] = {k: v.cpu() for k, v in res.items()}
+            if rank == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                single = ev.render(rays, H, W, "chunked")
+                torch.cuda.synchronize()
+                out["single_ms"] = (time.perf_counter() - t0) * 1e3
+                out["single"] = {k: v.cpu() for k, v in single.items()}
+        del ev
+        if rank == 0:  # each rank's first step recomputed in one process
+            one = system(GEN_BATCH // DP_RANKS)
+            batch = one.batch(sample)
+            per_rank = []
+            for r in range(DP_RANKS):
+                gen = torch.Generator(device=dev).manual_seed(
+                    rank_seed(SEED * 2 ** 32, r))
+                loss, _ = one.loss(batch, *one.draw(batch, gen))
+                one.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                per_rank.append(grads_by_part(one))
+            out["recomputed"] = {n: (sum(g[n] for g in per_rank) /
+                                     DP_RANKS).cpu() for n in per_rank[0]}
+            out["rank_differs"] = max_err(per_rank[0]["MLP"],
+                                          out["recomputed"]["MLP"].to(dev))
+    finally:
+        dist.destroy_process_group()
+    import torch as _torch
+    _torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def dp_two_ranks(mlp, mvsnet, sample, failures):
+    """Phase 14 (b): DP_RANKS gloo ranks on the one card (NCCL cannot put
+    two ranks on one card; gloo all-reduces the CUDA tensors through the
+    host), spawned with torch.multiprocessing."""
+    import tempfile
+
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp, mvsnet)
+        np.savez(os.path.join(tmp, "sample.npz"), **sample)
+        t0 = time.perf_counter()
+        try:
+            torch.multiprocessing.spawn(dp_rank, args=(tmp,),
+                                        nprocs=DP_RANKS, join=True)
+        except Exception as e:  # a rank's failure fails the phase
+            print(f"[14 dp2] a rank failed: {type(e).__name__}: "
+                  f"{str(e)[-2000:]}")
+            check(False, "[14] a gloo rank on the card failed", failures)
+            return
+        spawn_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(DP_RANKS)]
+    r0 = res[0]
+    print(f"[14 dp2] {DP_RANKS} ranks ({r0['backend']}) on the one card, "
+          f"{GEN_BATCH // DP_RANKS} rays a rank: spawn to join "
+          f"{spawn_s:.1f} s; fit of {DP_STEPS} steps "
+          f"{[round(r['fit_s'], 2) for r in res]} s; losses "
+          f"{[round(v, 5) for v in r0['losses']]}; launches rank 0: fit "
+          f"{ {k: n for k, n in r0['launches'].items() if n} }, sharded "
+          f"render { {k: n for k, n in r0['render_launches'].items() if n} }")
+    hold_grads("14 dp2", "the all-reduced first-step gradients vs the mean "
+               "of both ranks' recomputed in one process", r0["grads"],
+               r0["recomputed"], failures)
+    print(f"   rank 0's own MLP gradient is {r0['rank_differs']:.2e} from "
+          "the mean (the ranks drew apart)")
+    same = all(torch.equal(r["params"], r0["params"]) for r in res) and \
+        all(r["losses"] == r0["losses"] for r in res)
+    print(f"[14 dp2] parameters bit-equal on every rank after {DP_STEPS} "
+          f"steps: {same}")
+    check(same and r0["rank_differs"] > 0, "[14] the ranks' parameters "
+          "differ, or the ranks drew the same rays", failures)
+    err = max(max_err(r["sharded"][k], r0["single"][k]) for r in res
+              for k in ("rgb", "depth", "acc"))
+    print(f"[14 dp2] shard_rays_render of one {H}x{W} request: "
+          f"{[round(r['sharded_ms'], 1) for r in res]} ms a rank against "
+          f"{r0['single_ms']:.1f} ms in one process; max abs err against "
+          f"rank 0's one-process chunked render {err:.3e} (tol "
+          f"{TOL_K6:.0e})")
+    check(err <= TOL_K6, "[14] the sharded render disagrees", failures)
+    for k in ("K1", "K2", "K4", "K5 fwd", "K5 bwd", "K7 fwd", "K7 bwd"):
+        check(all(r["launches"][k] > 0 for r in res),
+              f"[14] {k} never launched in a gloo rank's fit", failures)
+    for k in ("K4", "K8"):
+        check(all(r["render_launches"][k] > 0 for r in res),
+              f"[14] {k} never launched in a gloo rank's sharded render",
+              failures)
+
+
+def mlp_types_phase(dev, mvsnet, failures, ft_step_ms):
+    """Phase 14 (c): v1, v2 and fusion at full width: a request per type
+    on the chunked route held to the same request on K4's twin, 10 v2
+    fine-tune steps, `evaluate --net_type v2` through the CLI; K7, K8, K6
+    and K6b never launch for these MLPs."""
+    import tempfile
+
+    import torch
+    from mvsnerf_tpu_torch import evaluate as evaluate_cli
+    from mvsnerf_tpu_torch.data import synthetic
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.models.nerf_mlp import MVSNeRF
+    from mvsnerf_tpu_torch.ops.color_warp import color_warp_plain
+    from mvsnerf_tpu_torch.render import renderer
+
+    counters = dp_counters()
+    never = ("K6", "K6b", "K7 fwd", "K7 bwd", "K8")
+    imgs_norm, projs, pose_src = make_scene(np.random.default_rng(SEED))
+    rays = rays_for_pose(pose(0, 0.02, 0.1), pose_src["intrinsics"][0], H,
+                         W, dev)
+    mlps = {}
+    for i, net_type in enumerate(MLP_TYPES):
+        gen = torch.Generator().manual_seed(SEED + 20 + i)
+        mlps[net_type] = m = seeded_init_(MVSNeRF(net_type, device=dev), gen)
+        ev = Evaluator(mvsnet, m, n_samples=N_SAMPLES, pad=PAD,
+                       n_planes=N_PLANES, chunk=CHUNK, device=dev)
+        zero_counts(counters)
+        with torch.no_grad():
+            ev.build_volume(imgs_norm, projs, NEAR_FAR, pose_src)
+            out, ms = synced_ms(lambda: ev.render(rays, H, W, "chunked"))
+            counts = read_counts(counters)
+            with swapped(renderer, "color_warp", color_warp_plain):
+                twin, twin_ms = synced_ms(
+                    lambda: ev.render(rays, H, W, "chunked"))
+        err = max(max_err(out[k], twin[k]) for k in ("rgb", "depth", "acc"))
+        finite = all(bool(torch.isfinite(out[k]).all()) for k in out)
+        print(f"[14 {net_type}] one {H}x{W} chunked request: {ms:.1f} ms "
+              f"(K4's twin: {twin_ms:.1f} ms), max abs err against the "
+              f"twin's {err:.3e} (tol {TOL_K6:.0e}); acc mean "
+              f"{float(out['acc'].mean()):.4f}; launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        check(finite and err <= TOL_K6, f"[14] the {net_type} request "
+              "disagrees with K4's twin or is not finite", failures)
+        check(counts["K1"] > 0 and counts["K4"] > 0 and
+              not any(counts[k] for k in never),
+              f"[14] the {net_type} request's launches {counts}", failures)
+        del ev, out, twin
+        torch.cuda.empty_cache()
+
+    # 10 fine-tune steps with --net_type v2 (K4, K5 gather and splat, the
+    # module's MLP under autograd), beside phase 6's v0 step on K7
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlps["v2"], mvsnet, scene,
+                             "--net_type v2")
+    require(system.mlp.net_type == "v2", "the v2 system's MLP is not v2")
+    zero_counts(counters)
+    clock = StepClock()
+    losses = system.fit(num_steps=MLP_STEPS + 2, log_every=1, logger=clock,
+                        seed=SEED, val_every=0)
+    counts = read_counts(counters)
+    step_ms = (clock.marks[MLP_STEPS + 1] - clock.marks[1]) * 1e3 / MLP_STEPS
+    print(f"[14 v2 fine-tune] {len(losses)} steps, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; steps 3-{MLP_STEPS + 2}: {step_ms:.2f} ms/step "
+          f"on the module's MLP (phase 6's v0 step on K7: "
+          f"{ft_step_ms:.2f}); launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    check(all(math.isfinite(v) for v in losses) and counts["K4"] > 0 and
+          counts["K5 fwd"] > 0 and counts["K5 bwd"] > 0 and
+          not any(counts[k] for k in never),
+          f"[14] the v2 fine-tune's losses or launches {counts}", failures)
+    del system, scene
+    torch.cuda.empty_cache()
+
+    # evaluate --net_type v2 through the CLI, on an LLFF scene at its
+    # published 960x640 written by data/synthetic.py (the port has no DTU
+    # scene writer; JAX's scripts/make_synthetic_scene.py imports JAX)
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir = os.path.join(tmp, "fern")
+        synthetic.write_llff_scene(datadir, wh=DATASET_WH["llff"],
+                                   seed=SEED + 15)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "v2.tar"),
+                                      mlps["v2"], mvsnet)
+        base = ["--dataset_name", "llff", "--datadir", datadir, "--ckpt",
+                ckpt, "--pad", str(PAD), "--net_type", "v2", "--expname",
+                "smoke_v2"]
+        with contextlib.chdir(tmp):
+            zero_counts(counters)
+            metrics, ms = synced_ms(lambda: evaluate_cli.main(
+                base + ["--render_mode", "chunked"]))
+            counts = read_counts(counters)
+            try:
+                evaluate_cli.main(base + ["--render_mode", "tiled"])
+                refused = "rendered"
+            except ValueError as e:
+                refused = str(e)
+    print(f"[14 evaluate --net_type v2] {len(metrics['per_image'])} LLFF "
+          f"val views of {DATASET_WH['llff']} in {ms / 1e3:.1f} s, mean "
+          f"{ {k: round(v, 4) for k, v in metrics['mean'].items()} }; "
+          f"launches { {k: n for k, n in counts.items() if n} }; "
+          f"--render_mode tiled: {refused[:80]}")
+    check(all(math.isfinite(v) for v in metrics["mean"].values()) and
+          counts["K1"] > 0 and counts["K4"] > 0 and
+          not any(counts[k] for k in never) and "v0 MLP" in refused,
+          f"[14] evaluate --net_type v2: launches {counts}, tiled "
+          f"{refused[:80]}", failures)
+
+
+def parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms):
+    """Phase 14: (a) NCCL at world size 1, (b) two gloo ranks on the one
+    card, (c) the v1, v2 and fusion MLPs."""
+    import torch
+    t_phase = time.perf_counter()
+    sample = generalizable_sample(np.random.default_rng(SEED + 3))
+    dp_single_rank(dev, mlp, mvsnet, sample, failures, gen_step_ms)
+    t_a = time.perf_counter()
+    dp_two_ranks(mlp, mvsnet, sample, failures)
+    t_b = time.perf_counter()
+    torch.cuda.empty_cache()
+    mlp_types_phase(dev, mvsnet, failures, ft_step_ms)
+    print(f"[14 time] phase 14 took {time.perf_counter() - t_phase:.1f} s "
+          f"((a) {t_a - t_phase:.1f}, (b) {t_b - t_a:.1f}, (c) "
+          f"{time.perf_counter() - t_b:.1f})")
+
+
 
 def main():
     t_start = time.perf_counter()
@@ -3884,6 +4366,11 @@ def main():
     # requests and the CLIs at 800x800 and 960x640
     torch.cuda.empty_cache()
     kernels += dataset_phase(dev, mlp, mvsnet, failures)
+
+    # ---- 14. data parallelism (NCCL at one rank, two gloo ranks on the
+    # card) and the v1, v2 and fusion MLPs
+    torch.cuda.empty_cache()
+    parallel_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, ft_step_ms)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

@@ -11,16 +11,19 @@ Layout (the old module paths, so a reader finds each counterpart):
                 (K4), render_fused (K6, K6b, K8), volume_gather (K5),
                 mlp_train (K7) and costreg_conv (K10), each with its plain
                 PyTorch twin
-    models/     ABN layers, FeatureNet + CostRegNet (MVSNet), the v0 MLP
+    models/     ABN layers, attention, FeatureNet + CostRegNet (MVSNet),
+                the v0, v1, v2 and fusion MLPs
     io/         reference-checkpoint state dicts, snapshots
+    parallel/   process groups, meshes, data-parallel steps and the
+                ray-sharded render over torch.distributed
     render/     chunked (K8), hybrid (K6) and tiled (colour bake + K6b)
                 renderers
     eval/       the no-finetune Evaluator, metrics, render paths, video
-    train/      the fine-tune and generalizable trainers
-    data/       the dtu_ft and dtu loaders
+    train/      the fine-tune, generalizable and fusion trainers
+    data/       the dtu_ft, dtu, blender and llff loaders
     utils/      schedulers, CSV logging, depth colormap and panels
-    *.py        the CLIs: train_finetune, train_mvs_nerf, evaluate,
-                render_video
+    *.py        the CLIs: train_finetune, train_mvs_nerf, train_fusion,
+                evaluate, render_video
     csrc/       hand-written CUDA kernels for sm_90a, built at first use by
                 `_build.py` into `_build/`
 

@@ -45,7 +45,8 @@ class Evaluator:
     """Generalizable (no-finetune) evaluator of one scene at a time.
 
     Args:
-        mvsnet: `models.mvsnet.MVSNet`; mlp: the v0 `MVSNeRF`.
+        mvsnet: `models.mvsnet.MVSNet`; mlp: an `MVSNeRF` of any net type
+            (`hybrid` and `tiled` take the v0 MLP at D=6, W=128 alone).
         n_samples: samples per ray; pad: cost-volume padding;
         n_planes: sweep planes (the reference's 128).
         white_bkgd: composite onto white (Blender scenes).

@@ -12,7 +12,10 @@ By default each validation image is rendered from the 3 training views
 nearest it (the notebook protocol), the volume rebuilt per image;
 `--fixed_sources` keeps the scene's default 3 sources. The val split of
 `dtu_ft`, `blender` (scored on its central 80 %) or `llff`. `--render_mode`
-picks `chunked`, `hybrid` or `tiled`. LPIPS is scored when
+picks `chunked`, `hybrid` or `tiled`. `--net_type`, `--netdepth` and
+`--netwidth` name the checkpoint's MLP (its keys do not tell v0 from v2);
+`hybrid` and `tiled` take the v0 MLP at D=6, W=128 alone and raise for
+any other. LPIPS is scored when
 `--lpips_weights` (default lpips_vgg.npz) exists. Runs on the CUDA card
 (`--device cpu` runs on the CPU; with no card and no `--device cpu` it
 raises). Prints the mean metrics and writes
@@ -31,7 +34,7 @@ from .config import config_parser
 from .data import per_scene_dataset
 from .data.pairs import get_split
 from .eval.evaluate import Evaluator
-from .io.torch_ckpt import load_reference_checkpoint
+from .train.finetune import reference_modules
 
 
 def train_split_info(ds, args):
@@ -68,8 +71,7 @@ def main(argv=None):
     args = config_parser(argv)
     dataset = per_scene_dataset(args.dataset_name)
     device = resolve_device(args.device)
-    mlp, mvsnet, _ = load_reference_checkpoint(args.ckpt, device,
-                                               args.costreg_impl)
+    mlp, mvsnet, _ = reference_modules(args, device)
     val_ds = dataset(args, "val")
     evaluator = Evaluator(mvsnet, mlp, n_samples=args.N_samples,
                           pad=args.pad, white_bkgd=args.white_bkgd,

@@ -43,16 +43,43 @@ def _put_abn(sd, prefix, bn):
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
-def state_dicts_from_jax(mlp_params, mvsnet_params):
-    """JAX v0 MLP + MVSNet pytrees (numpy leaves) -> (network_fn state
-    dict, network_mvs state dict) with the reference's keys."""
+# the fusion MLP's heads are Sequentials: their Linear is `<head>.0`
+_SEQUENTIAL_HEADS = ("feature_linear", "alpha_linear", "rgb_out")
+
+
+def _mlp_state_dict(p, net_type):
+    """A JAX MLP pytree of `net_type` -> its network_fn state dict."""
     fn_sd = {}
-    for i, lin in enumerate(mlp_params["pts_linears"]):
+    for i, lin in enumerate(p["pts_linears"]):
         _put_linear(fn_sd, f"nerf.pts_linears.{i}", lin)
-    for i, lin in enumerate(mlp_params["views_linears"]):
+    for i, lin in enumerate(p.get("views_linears", [])):
         _put_linear(fn_sd, f"nerf.views_linears.{i}", lin)
-    for name in ("pts_bias", "feature_linear", "alpha_linear", "rgb_linear"):
-        _put_linear(fn_sd, f"nerf.{name}", mlp_params[name])
+    for name in ("pts_bias", "feature_linear", "alpha_linear", "rgb_linear",
+                 "weight_out", "rgb_out"):
+        if name in p:
+            seq = net_type == "fusion" and name in _SEQUENTIAL_HEADS
+            _put_linear(fn_sd, f"nerf.{name}.0" if seq else f"nerf.{name}",
+                        p[name])
+    for attn in ("color_attention", "ray_attention"):
+        if attn in p:
+            for lin in ("w_qs", "w_ks", "w_vs", "fc"):
+                _put_linear(fn_sd, f"nerf.{attn}.{lin}", p[attn][lin])
+            ln = p[attn]["layer_norm"]
+            fn_sd[f"nerf.{attn}.layer_norm.weight"] = _t(ln["scale"])
+            fn_sd[f"nerf.{attn}.layer_norm.bias"] = _t(ln["bias"])
+    return fn_sd
+
+
+def state_dicts_from_jax(mlp_params, mvsnet_params, net_type: str = "v0"):
+    """JAX MLP (of `net_type`) + MVSNet pytrees (numpy leaves) ->
+    (network_fn state dict, network_mvs state dict) with the reference's
+    keys; the second is None without `mvsnet_params`. The attention blocks
+    (v1's `color_attention`, fusion's `ray_attention`) and fusion's
+    Sequential heads (`*.0`) are written here: JAX's
+    `export_reference_checkpoint` writes neither."""
+    fn_sd = _mlp_state_dict(mlp_params, net_type)
+    if mvsnet_params is None:
+        return fn_sd, None
 
     mvs_sd = {}
     feat = mvsnet_params["feature"]
@@ -81,10 +108,14 @@ def state_dicts_from_jax(mlp_params, mvsnet_params):
 
 
 def modules_from_state_dicts(fn_sd, mvs_sd, device=None,
-                             costreg_impl: str = "auto"):
-    """Build the v0 MLP and MVSNet (its U-Net on `costreg_impl`'s route) on
-    `device` and load both state dicts strictly."""
-    mlp = MVSNeRF(device=device)
+                             costreg_impl: str = "auto",
+                             net_type: str = "v0", D: int = 6,
+                             W: int = 128):
+    """Build the MLP of `net_type` at depth D and width W, and MVSNet (its
+    U-Net on `costreg_impl`'s route), on `device` and load both state dicts
+    strictly. The type is the caller's, never read from the keys: v0 and
+    v2 have the same keys and shapes (JAX nerf_mlp.py:184-200)."""
+    mlp = MVSNeRF(net_type, D, W, device=device)
     mlp.load_state_dict(fn_sd, strict=True)
     mvsnet = MVSNet(device=device, costreg_impl=costreg_impl)
     mvsnet.load_state_dict(mvs_sd, strict=True)
@@ -104,14 +135,19 @@ def volume_from_state(vol_sd):
 
 
 def load_reference_checkpoint(path: str, device=None,
-                              costreg_impl: str = "auto"):
+                              costreg_impl: str = "auto",
+                              net_type: str = "v0", D: int = 6,
+                              W: int = 128):
     """torch.load a reference-format checkpoint -> (MVSNeRF, MVSNet,
-    volume): both modules loaded with strict=True, the MVSNet's U-Net on
-    `costreg_impl`'s route; the fine-tuned (D, h, w, C) volume when the
-    checkpoint holds one, else None."""
+    volume): both modules loaded with strict=True, the MLP of the caller's
+    `net_type` at depth D and width W (`--net_type`, `--netdepth`,
+    `--netwidth`), the MVSNet's U-Net on `costreg_impl`'s route; the
+    fine-tuned (D, h, w, C) volume when the checkpoint holds one, else
+    None."""
     ck = torch.load(path, map_location=device, weights_only=True)
     mlp, mvsnet = modules_from_state_dicts(ck["network_fn_state_dict"],
                                            ck["network_mvs_state_dict"],
-                                           device, costreg_impl)
+                                           device, costreg_impl, net_type,
+                                           D, W)
     volume = volume_from_state(ck["volume"]) if ck.get("volume") else None
     return mlp, mvsnet, volume

@@ -1,4 +1,5 @@
-"""ABN and conv blocks (counterpart of mvsnerf_tpu/models/layers.py).
+"""ABN, conv blocks and multi-head attention (counterpart of
+mvsnerf_tpu/models/layers.py).
 
 ABN replicates `inplace_abn.InPlaceABN` as the reference runs it: the
 reference keeps MVSNet in train mode even at inference, so normalisation
@@ -63,3 +64,40 @@ class ConvBnReLU3D(nn.Module):
 
     def forward(self, x):
         return self.bn(self.conv(x))
+
+
+class MultiHeadAttention(nn.Module):
+    """Residual + LayerNorm multi-head attention over the few source-view
+    tokens of a sample (reference models.py:70-141, JAX
+    `layers.multi_head_attention` :152-186). q, k, v are (B, L, d_model);
+    `w_qs`, `w_ks`, `w_vs` and `fc` carry no bias, as in the reference. A
+    `mask` (B, L, 1) sets the scores of its zero rows to -1e9 (JAX
+    :163-166: the mask broadcasts as (B, 1, L, 1), over the queries).
+    Returns (out (B, L, d_model), attention (B, n_head, L, L))."""
+
+    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int,
+                 device=None):
+        super().__init__()
+        self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
+        self.w_qs = nn.Linear(d_model, n_head * d_k, bias=False,
+                              device=device)
+        self.w_ks = nn.Linear(d_model, n_head * d_k, bias=False,
+                              device=device)
+        self.w_vs = nn.Linear(d_model, n_head * d_v, bias=False,
+                              device=device)
+        self.fc = nn.Linear(n_head * d_v, d_model, bias=False, device=device)
+        self.layer_norm = nn.LayerNorm(d_model, eps=1e-6, device=device)
+
+    def forward(self, q, k, v, mask=None):
+        B, Lq, _ = q.shape
+        Lk = k.shape[1]
+        residual = q
+        qh = self.w_qs(q).view(B, Lq, self.n_head, self.d_k).transpose(1, 2)
+        kh = self.w_ks(k).view(B, Lk, self.n_head, self.d_k).transpose(1, 2)
+        vh = self.w_vs(v).view(B, Lk, self.n_head, self.d_v).transpose(1, 2)
+        attn = (qh / self.d_k ** 0.5) @ kh.transpose(2, 3)
+        if mask is not None:
+            attn = attn.masked_fill(mask[:, None] == 0, -1e9)
+        attn = torch.softmax(attn, dim=-1)
+        out = (attn @ vh).transpose(1, 2).reshape(B, Lq, -1)
+        return self.layer_norm(self.fc(out) + residual), attn

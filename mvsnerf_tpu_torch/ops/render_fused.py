@@ -188,11 +188,24 @@ def pack_v0_weights_tct(weights):
     return torch.cat([hi, lo], 1).reshape(-1)
 
 
+def require_v0_mlp(mlp, what: str):
+    """Raise unless `mlp` is the v0 MLP at D=6, W=128, the one MLP the
+    kernels K6, K6b, K7 and K8 compute (v2 has v0's shapes, so a shape
+    check alone would let it through). JAX's kernels are v0-only too
+    (mvsnerf_tpu/render/tiled.py:112-113, pallas_mlp.py)."""
+    if not mlp.runs_v0_kernels:
+        raise ValueError(
+            f"{what}: the kernel computes the v0 MLP at D=6, W=128, got "
+            f"--net_type {mlp.net_type} --netdepth {mlp.D} --netwidth "
+            f"{mlp.W}; render it with --render_mode chunked")
+
+
 def pack_v0_weights(mlp):
     """The v0 MLP's weights as the kernels read them: for each layer of
     `_LAYERS`, the (in, out) matrix row-major, then the bias. Built without
     detaching, so a gradient of the packed vector flows back onto the
     module's parameters."""
+    require_v0_mlp(mlp, "v0 kernel")
     parts = []
     for name, n_in, n_out in _LAYERS:
         lin = mlp.nerf.get_submodule(name)

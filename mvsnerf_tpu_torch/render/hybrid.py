@@ -6,14 +6,15 @@ Counterpart of mvsnerf_tpu/render/tiled.py:83
 `--render_mode hybrid`). On the GPU a ray needs no image tile, window plan
 or locality check: every image renders, so there is no `_reject` fallback
 and no `pick_tile`. Rays go through in fixed-size chunks, which bounds the
-per-sample colour tensor (12 floats a sample).
+per-sample colour tensor (12 floats a sample). K6 computes the v0 MLP at
+D=6, W=128 alone: any other MLP raises, as in render/tiled.py.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.render_fused import render_v0
+from ..ops.render_fused import render_v0, require_v0_mlp
 from .renderer import build_color_volume, gen_dir_feature, \
     image_renderer, sample_rays
 
@@ -24,13 +25,14 @@ def make_hybrid_renderer(mlp, volume, imgs, near_far, pose_source,
     """Return fn(rays (N, 8), H, W) -> dict rgb (N, 3), depth, acc (N,).
 
     Args:
-        mlp: the v0 `MVSNeRF` module.
+        mlp: the v0 `MVSNeRF` module at D=6, W=128 (others raise).
         volume: (D, hp, wp, 8) encoding volume.
         imgs: (V, H, W, 3) source images in [0, 1] (not normalised).
         near_far: (2,) float32 tensor, the reference-view depth range.
         pose_source: dict of (V, 4, 4) `w2cs` and (V, 3, 3) `intrinsics`.
         lindisp: samples linear in disparity (`--use_disp`).
     """
+    require_v0_mlp(mlp, "hybrid render")
     w2cs = pose_source["w2cs"].contiguous()
     intrinsics = pose_source["intrinsics"].contiguous()
     volume = volume.contiguous()

@@ -1,5 +1,5 @@
 """The chunked volume-rendering pipeline (counterpart of
-mvsnerf_tpu/render/renderer.py, v0 MLP).
+mvsnerf_tpu/render/renderer.py).
 
 Per sample: trilinear fetch from the encoding volume, per-view colours +
 masks (kernel K4 on the card), positional encoding, the MLP, and alpha
@@ -16,6 +16,13 @@ every full-image render), the gathered features go to K8
 (`render_v0_feats`) for PE, MLP and compositing in one kernel; otherwise
 the eval route runs the module's MLP and `raw2outputs`. `twins=True` runs
 the kernels' plain twins instead, to hold one against the other.
+
+K7 and K8 take the v0 MLP at D=6, W=128 alone (`MVSNeRF.runs_v0_kernels`),
+as JAX's Pallas MLP does. Every other `--net_type` (v1, v2, fusion) or
+shape runs the module's MLP and `raw2outputs` on both routes, as JAX's
+`run_network` does (renderer.py:254-263); the route follows the
+configuration, and K4 and K5 serve every type. v1's fused colours fold
+into the returned `feats` (JAX renderer.py:307-309).
 
 `render_density` evaluates the MLP's alpha head alone over the volume's
 voxels, the density volume's refresh (`--use_density_volume`), and
@@ -85,10 +92,11 @@ def network_input(pts_ndc, viewdirs, feats):
 
 def run_network(mlp, pts_ndc, viewdirs, feats, training: bool = False,
                 twins: bool = False):
-    """PE + concat + MLP -> (N, S, 4). `training` runs the MLP through K7
-    (or its twin)."""
+    """PE + concat + MLP -> (N, S, 4), (N, S, 10) for v1. `training` runs
+    the v0 MLP at D=6, W=128 through K7 (or its twin); every other MLP is
+    the module's forward."""
     x = network_input(pts_ndc, viewdirs, feats)
-    if training:
+    if training and mlp.runs_v0_kernels:
         return (mlp_v0_train_plain if twins else mlp_v0_train)(mlp, x)
     return mlp(x)
 
@@ -98,30 +106,33 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
                 training: bool = False, twins: bool = False,
                 use_color_volume: bool = False, with_alpha: bool = False):
     """The render entry (renderer.py:138-165, 266-313). With gradients
-    off, PE, MLP and compositing run in K8 (or its twin with `twins`).
+    off, PE, MLP and compositing of the v0 MLP run in K8 (or its twin with
+    `twins`); any other MLP runs the module and `raw2outputs`.
 
     Args:
-        mlp: the v0 `MVSNeRF` module.
+        mlp: an `MVSNeRF` module of any net type.
         volume: (D, hp, wp, 8) encoding volume, or (D, hp, wp, 20) baked
             with `use_color_volume`.
         pts_world / pts_ndc: (N, S, 3); z_vals: (N, S); rays_dir: (N, 3).
         w2c_ref: reference world-to-camera (view-direction feature).
         w2cs / intrinsics / imgs: source views for the colours (unused
             with `use_color_volume`).
-        training: the fine-tune step's route (K5 fetch, K7 MLP).
+        training: the trainers' route (K5 fetch, and K7 for the v0 MLP).
         twins: the kernels' plain twins instead.
         with_alpha: K8 also returns each sample's alpha (the fusion
             trainer's local renders; JAX's `render_rays` returns it always).
     Returns:
-        dict rgb, depth, acc, weights, the gathered (N, S, 20) `feats` (and
-        disp with gradients on, alpha with gradients on or `with_alpha`).
+        dict rgb, depth, acc, weights, the gathered (N, S, 20) `feats`
+        (v1: the volume's 8 channels and its 6 fused-colour outputs), and
+        disp and alpha on the module's route, alpha on K8's with
+        `with_alpha`.
     """
     unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
                                              keepdim=True)
     angle = gen_dir_feature(w2c_ref, unit_dirs)
     feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
                           training, twins, use_color_volume)
-    if not torch.is_grad_enabled():
+    if not torch.is_grad_enabled() and mlp.runs_v0_kernels:
         fused = render_v0_feats_plain if twins else render_v0_feats
         out = fused(pts_ndc.contiguous(), feats.contiguous(),
                     angle.contiguous(), z_vals.contiguous(), mlp, with_alpha)
@@ -129,6 +140,8 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
             out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
     else:
         raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
+        if raw.shape[-1] > 4:
+            feats = torch.cat([feats[..., :8], raw[..., 4:]], dim=-1)
         out = raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
     out["feats"] = feats
     return out
@@ -142,10 +155,12 @@ DENSITY_CHUNK = 2 ** 18
 
 @torch.no_grad()
 def render_density(mlp, pts, feats, chunk: int = DENSITY_CHUNK):
-    """The MLP's density at (M, 3) points with (M, 20) features: relu of
-    the alpha head over [PE(pts) (10 frequencies) | feats], (M, 1)
-    (JAX renderer.py:316 `render_density`). Runs `chunk` points at a time,
-    in plain f32 layers (JAX computes it in XLA, outside any kernel)."""
+    """The MLP's density at (M, 3) points with (M, 20) features: its alpha
+    head over [PE(pts) (10 frequencies) | feats], (M, 1) (JAX
+    renderer.py:316 `render_density`): relu of it for v0 and fusion, the
+    head alone for v2; v1 has no alpha head and raises. Runs `chunk`
+    points at a time, in plain f32 layers (JAX computes it in XLA, outside
+    any kernel)."""
     return torch.cat([
         mlp.forward_alpha(torch.cat([positional_encoding(p, 10), f], -1))
         for p, f in zip(pts.split(chunk), feats.split(chunk))])

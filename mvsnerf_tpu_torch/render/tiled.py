@@ -10,8 +10,11 @@ the fine-tune, fusion and video render. JAX's
 render/hybrid.py's `make_hybrid_renderer`. On the GPU a ray needs no
 image tile, window plan or locality check, so there is no `pick_tile`,
 `plan_tiles` or `_reject`:
-every image renders, and a volume the kernel cannot take raises instead
-of falling back to the chunked path.
+every image renders, and a volume or an MLP the kernel cannot take raises
+instead of falling back to the chunked path: K6b computes the v0 MLP at
+D=6, W=128 alone. JAX's tiled renderer rejects other MLPs too
+(tiled.py:112-113), through `_reject`, after which its evaluator renders
+chunked without a word (eval/evaluate.py:150-180); the port raises.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import weakref
 
 import torch
 
-from ..ops.render_fused import N_FEATS, render_v0
+from ..ops.render_fused import N_FEATS, render_v0, require_v0_mlp
 from .renderer import build_color_volume, gen_dir_feature, \
     image_renderer, sample_rays
 
@@ -90,8 +93,10 @@ def make_tiled_renderer(mlp, volume, imgs, near_far, pose_source,
             (`sample_rays(bbox=...)`; JAX tiled.py:97-100, 120-122,
             157-173). The volume must be baked already (20 channels);
             `imgs`, `near_far` and `pad` are then unused and may be None.
-    The returned function carries the baked volume as `.volume`.
+    The returned function carries the baked volume as `.volume`. Raises
+    for an MLP other than v0 at D=6, W=128.
     """
+    require_v0_mlp(mlp, "tiled render")
     if bbox is not None and volume.shape[-1] != N_FEATS:
         raise ValueError(f"tiled render in a bbox: volume "
                          f"{tuple(volume.shape)} is not the baked "

@@ -3,7 +3,7 @@ reference train_mvs_nerf_finetuning_pl.py).
 
 The encoding volume is built once by MVSNet from 3 source views (or taken
 from a reference checkpoint that holds one) and becomes an `nn.Parameter`
-trained beside the v0 MLP. Each step samples a batch of rays, renders them
+trained beside the MLP. Each step samples a batch of rays, renders them
 on the training route (K4 colours, K5 volume fetch, K7 MLP on a card;
 their plain versions on the CPU), takes the MSE against the pixels and
 updates with Adam under the step schedule.
@@ -26,8 +26,13 @@ volume, the optimizer, the samples, the density refresh and its cadence,
 and the tiled render, and shares the step, `fit`, validation and
 snapshots.
 
-Refused with NotImplementedError (ROADMAP.md): MLPs other than v0 at D=6,
-W=128, and reading the JAX package's `.msgpack` snapshots.
+`--net_type`, `--netdepth` and `--netwidth` pick the MLP
+(models/nerf_mlp.py): the v0 MLP at D=6, W=128 runs on K7 in the step and
+K8 in the chunked render; every other one runs the module's forward, K4
+and K5 serving all; `--render_mode tiled` raises ValueError at the render for
+any other (K6b is v0-only). Refused with NotImplementedError: the density
+volume with v1 (it has no alpha head), and reading the JAX package's
+`.msgpack` snapshots (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -84,12 +89,23 @@ def frustum_point_volume(h, w, d, pad, near_far, intrinsic_s4, c2w):
 VAL_PHASE = 100
 
 
-def _refuse_unported(args):
-    if args.net_type != "v0" or args.netdepth != 6 or args.netwidth != 128:
-        raise NotImplementedError(
-            f"only the v0 MLP at D=6, W=128 is ported, got --net_type "
-            f"{args.net_type} --netdepth {args.netdepth} --netwidth "
-            f"{args.netwidth}")
+def seeded_modules(args, device):
+    """The MLP of `--net_type` / `--netdepth` / `--netwidth` and MVSNet (its
+    U-Net on `--costreg_impl`'s route), initialised from torch seed 0 on
+    the CPU and moved to `device`: every process builds the same weights."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        mlp = MVSNeRF(args.net_type, args.netdepth, args.netwidth)
+        mvsnet = MVSNet(costreg_impl=args.costreg_impl)
+    return mlp.to(device), mvsnet.to(device)
+
+
+def reference_modules(args, device):
+    """`load_reference_checkpoint` of `--ckpt` with the MLP the flags name
+    (the checkpoint's keys do not tell v0 from v2)."""
+    return load_reference_checkpoint(args.ckpt, device, args.costreg_impl,
+                                     args.net_type, args.netdepth,
+                                     args.netwidth)
 
 
 def psnr(pred, gt):
@@ -113,9 +129,9 @@ class FinetuneSystem:
     DENSITY_EVERY = 200
 
     def __init__(self, args, dataset_train, dataset_val=None, device=None):
-        _refuse_unported(args)
         set_precision_policy()
         self.args = args
+        self._refuse_unported()
         self.train_dataset = dataset_train
         self.val_dataset = dataset_val
         self.device = resolve_device(device)
@@ -129,20 +145,23 @@ class FinetuneSystem:
                 raise NotImplementedError(
                     "reading the JAX package's .msgpack snapshots is not "
                     "ported yet")
-            self.mlp, self.mvsnet, ckpt_volume = load_reference_checkpoint(
-                args.ckpt, self.device, args.costreg_impl)
+            self.mlp, self.mvsnet, ckpt_volume = reference_modules(
+                args, self.device)
         else:
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(0)
-                mlp, mvsnet = MVSNeRF(), MVSNet(
-                    costreg_impl=args.costreg_impl)
-            self.mlp, self.mvsnet = mlp.to(self.device), \
-                mvsnet.to(self.device)
+            self.mlp, self.mvsnet = seeded_modules(args, self.device)
         self.use_color_volume = args.use_color_volume
         self._init_volume(ckpt_volume)
         self._build_optimizer()
 
     # ------------------------------------------------------------- setup ---
+
+    def _refuse_unported(self):
+        """The density refresh runs the MLP's alpha head, which v1 lacks
+        (JAX's `_ALPHA` has no v1 and fails at its first refresh)."""
+        if self._refreshes_density() and self.args.net_type == "v1":
+            raise NotImplementedError(
+                "the density volume needs the MLP's alpha head, and the v1 "
+                "MLP has none (mvsnerf_tpu/models/nerf_mlp.py:222)")
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)

@@ -21,6 +21,12 @@ renders' NDC at quarter scale with JAX's own arguments (the intrinsic x
 0.25, `inv_scale` (W/4 - 1, H/4 - 1), pad / 4), whose x scale differs from
 the image-scale one by (W/4 - 1) against (W - 1) / 4 (ROADMAP.md).
 
+`--net_type` picks the MLP as in `FinetuneSystem`: v0 at D=6, W=128
+renders the local views on K8 and trains on K7; v2 and fusion run the
+module's forward in both (their alpha from `raw2outputs`). v1 is refused:
+it folds its colours into 14 feature channels, not the fused volume's 20
+(JAX's fuse reshapes them to 20 and fails, fusion.py:193).
+
 On the CPU every kernel runs its plain twin: the splat is JAX's
 eight-corner scatter, written with `index_add_`.
 """
@@ -142,6 +148,15 @@ class FusionFinetuneSystem(FinetuneSystem):
 
     # ------------------------------------------------------------ fusion ---
 
+    def _refuse_unported(self):
+        if self.args.net_type == "v1":
+            raise NotImplementedError(
+                "fusion with the v1 MLP: its render folds 6 fused-colour "
+                "channels into 14 features, and the fused volume holds the "
+                "20 of the volume and the source colours (JAX's fuse "
+                "reshapes them to 20, mvsnerf_tpu/train/fusion.py:193)")
+        super()._refuse_unported()
+
     def _init_volume(self, ckpt_volume):
         """The fused volume (a checkpoint's volume is not read, as in
         JAX); the colour-baked semantics throughout."""
@@ -158,7 +173,8 @@ class FusionFinetuneSystem(FinetuneSystem):
         (N, 128, 3)) of a chunk of 1/4-resolution rays over a local volume
         (JAX fusion.py:111-137): 128 unjittered samples, NDC at quarter
         scale with JAX's arguments, K4 colours, the `grid_sample` fetch,
-        then K8 with alpha (`twins`: their plain twins)."""
+        then K8 with alpha for the v0 MLP, the module and `raw2outputs`
+        for the others (`twins`: the kernels' plain twins)."""
         pts, _, rays_d, z_vals = ray_marcher(rays, FUSE_SAMPLES)
         w2cs, intrinsics = pose_source["w2cs"], pose_source["intrinsics"]
         h4, w4 = imgs.shape[1] // 4, imgs.shape[2] // 4

@@ -10,10 +10,20 @@ with `--with_depth_loss`, half a SmoothL1 depth loss. The backward runs
 through K7, the K5 splat, the U-Net, K2 (the sweep backward) and
 FeatureNet; Adam (fused on a card) updates the MLP and the MVSNet under
 the cosine schedule. On the CPU every kernel is its plain twin.
+`--net_type`, `--netdepth` and `--netwidth` pick the MLP: any but v0 at
+D=6, W=128 runs the module's forward instead of K7 and K8.
 
-Refused with NotImplementedError: MLPs other than v0 at D=6, W=128, and
-reading the JAX package's `.msgpack` snapshots. The JAX trainer's mesh
-(data parallelism) is not ported (ROADMAP Queue 1 item 10).
+With a mesh (parallel/), the step is data-parallel as JAX's is
+(generalizable.py:80-85, 172-197): every rank builds the volume from the
+same views, draws `batch_size / ranks` rays of its own (the generator of
+step k on shard r is seeded `rank_seed(seed * 2**32 + k, r)`, so rank 0
+draws what one process draws), and one coalesced all-reduce averages the
+gradients, the loss and its parts before Adam steps. Batch-statistics
+norms need no synchronising: every rank normalises the same volume.
+Logging, snapshots and validation run on rank 0, with a barrier after.
+
+Refused with NotImplementedError: reading the JAX package's `.msgpack`
+snapshots.
 """
 
 from __future__ import annotations
@@ -23,19 +33,20 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device, set_precision_policy
 from ..io.checkpoint import latest_checkpoint, load_checkpoint, \
     save_checkpoint
-from ..io.torch_ckpt import load_reference_checkpoint
-from ..models.mvsnet import MVSNet
-from ..models.nerf_mlp import MVSNeRF
 from ..ops.geometry import full_image_pixels, get_ndc_coordinate, \
     rays_from_pixels, sample_random_pixels
+from ..parallel import allreduce_mean, axis_group, is_main_rank, \
+    rank_seed, replicate
 from ..render.renderer import gen_dir_feature, gen_pts_feats, \
     network_input, render_image_chunked, render_rays
 from ..utils.schedulers import make_lr_schedule
 from .common import unpreprocess_images
+from .finetune import reference_modules, seeded_modules
 
 # the sample's arrays the step reads (the rest are ids and the scan name)
 BATCH_KEYS = ("images", "proj_mats", "near_fars", "w2cs", "c2ws",
@@ -56,32 +67,37 @@ class GeneralizableSystem:
     It runs on the CUDA card unless `device="cpu"` is passed (and raises
     with no card). A reference `--ckpt` loads the MLP and the MVSNet and
     training starts at step 0 (JAX generalizable.py:45-48); otherwise the
-    modules are initialised from torch seed 0.
+    modules are initialised from torch seed 0. With a `mesh`
+    (parallel.make_mesh) the step is data-parallel over all its axes
+    (module docstring): `--batch_size` is the global batch and must divide
+    by the ranks, and rank 0's weights are broadcast to the others.
     """
 
-    def __init__(self, args, device=None):
-        if args.net_type != "v0" or args.netdepth != 6 or args.netwidth != 128:
-            raise NotImplementedError(
-                f"only the v0 MLP at D=6, W=128 is ported, got --net_type "
-                f"{args.net_type} --netdepth {args.netdepth} --netwidth "
-                f"{args.netwidth}")
+    def __init__(self, args, device=None, mesh=None):
         set_precision_policy()
         self.args = args
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # the step reduces over every axis of the mesh; this process's
+        # shard among them
+        self.axes = mesh.mesh_dim_names if mesh is not None else None
+        _, n_ranks, self.shard = axis_group(mesh, self.axes) \
+            if mesh is not None else (None, 1, 0)
+        if args.batch_size % n_ranks:
+            raise ValueError(f"global ray batch {args.batch_size} not "
+                             f"divisible by the mesh's {n_ranks} ranks")
+        # rays a rank draws a step (JAX generalizable.py:80-85)
+        self.rays_per_rank = args.batch_size // n_ranks
         if args.ckpt and os.path.exists(args.ckpt):
             if args.ckpt.endswith(".msgpack"):
                 raise NotImplementedError(
                     "reading the JAX package's .msgpack snapshots is not "
                     "ported yet")
-            self.mlp, self.mvsnet, _ = load_reference_checkpoint(
-                args.ckpt, self.device, args.costreg_impl)
+            self.mlp, self.mvsnet, _ = reference_modules(args, self.device)
         else:
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(0)
-                mlp, mvsnet = MVSNeRF(), MVSNet(
-                    costreg_impl=args.costreg_impl)
-            self.mlp, self.mvsnet = mlp.to(self.device), \
-                mvsnet.to(self.device)
+            self.mlp, self.mvsnet = seeded_modules(args, self.device)
+        if mesh is not None:
+            replicate([self.mlp, self.mvsnet], mesh)
         self.global_step = 0
         # the cosine schedule's length; the first `fit` fixes it, as the
         # JAX trainer fixes it when it builds its step
@@ -109,15 +125,21 @@ class GeneralizableSystem:
                 for k in BATCH_KEYS if k in sample}
 
     def draw(self, batch, generator=None):
-        """The step's random draws: `batch_size` integer pixels of the
-        target view and the (batch_size, N_samples) uniform depth jitter,
-        in that order from `generator`."""
+        """The step's random draws of this rank: `rays_per_rank` integer
+        pixels of the target view and the (rays_per_rank, N_samples)
+        uniform depth jitter, in that order from `generator`."""
         _, H, W, _ = batch["images"].shape
-        xs, ys = sample_random_pixels(H, W, self.args.batch_size, generator,
+        xs, ys = sample_random_pixels(H, W, self.rays_per_rank, generator,
                                       self.device)
-        u = torch.rand((self.args.batch_size, self.args.N_samples),
+        u = torch.rand((self.rays_per_rank, self.args.N_samples),
                        generator=generator, device=self.device)
         return xs, ys, u
+
+    def step_seed(self, seed: int, step: int) -> int:
+        """The seed of this rank's generator at `step`: (seed, step, shard)
+        through `rank_seed`; one process (or shard 0) draws from
+        seed * 2**32 + step."""
+        return rank_seed(seed * 2 ** 32 + step, self.shard)
 
     def _samples(self, batch, xs, ys, u):
         """The rays of the target view (= the last view, utils.py:177) at
@@ -198,27 +220,45 @@ class GeneralizableSystem:
         return loss, aux
 
     def _step(self, batch, xs, ys, u, twins: bool = False):
-        """One update for given draws: the loss, its gradients, Adam and a
-        schedule tick. Returns (loss, aux) detached on the device (reading
-        them synchronises)."""
+        """One update for given draws: the loss, its gradients (with a
+        mesh, averaged over the ranks with the loss and its parts, in one
+        all-reduce), Adam and a schedule tick. Returns (loss, aux) detached
+        on the device (reading them synchronises)."""
         loss, aux = self.loss(batch, xs, ys, u, twins)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            (loss, *parts), _ = allreduce_mean(params, self.mesh, self.axes,
+                                               [loss, *aux.values()])
+            aux = dict(zip(aux, parts))
         self.optimizer.step()
         self.scheduler.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def on_main_rank(self, fn, *args):
+        """Run fn on rank 0 alone, then wait for every rank (with a mesh)."""
+        if is_main_rank():
+            fn(*args)
+        if self.mesh is not None:
+            dist.barrier()
 
     def fit(self, dataset, num_epochs=None, logger=None,
             ckpt_dir: str | None = None, seed: int = 0,
             max_steps: int | None = None, ckpt_every: int = 20000,
             val_fn=None, val_every: int = 0, log_every: int = 100):
         """Epochs over `dataset` in a per-epoch permutation (JAX
-        generalizable.py:213-263). The draws of step k come from a
-        generator on the device seeded from (seed, k). Every `log_every`
-        steps the loss, the RGB MSE, its PSNR and the depth loss are
+        generalizable.py:213-263), the same on every rank. The draws of
+        step k come from a generator on the device seeded from (seed, k)
+        and the rank (`step_seed`). Every `log_every` steps the loss, the
+        RGB MSE, its PSNR and the depth loss (means over the ranks) are
         logged; `val_fn(global_step)` runs every `val_every` steps and at
         each epoch end; snapshots every `ckpt_every` steps and at the end
-        when `ckpt_dir` is given. Returns the step losses as floats."""
+        when `ckpt_dir` is given. Logging, validation and snapshots run on
+        rank 0 alone, the others waiting at a barrier: with a mesh every
+        rank passes the same `val_fn`, `ckpt_dir` and cadences (its
+        `logger` may be None). Returns the step losses as floats."""
         args = self.args
         num_epochs = num_epochs or args.num_epochs
         n = len(dataset)
@@ -233,34 +273,38 @@ class GeneralizableSystem:
         for _ in range(num_epochs):
             for i in rng.permutation(n):
                 batch = self.batch(dataset[int(i)])
-                gen.manual_seed(seed * 2 ** 32 + self.global_step)
+                gen.manual_seed(self.step_seed(seed, self.global_step))
                 loss, aux = self._step(batch, *self.draw(batch, gen))
                 losses.append(loss)
                 self.global_step += 1
-                if logger is not None and self.global_step % log_every == 0:
-                    mse = float(aux["img_mse"])
-                    scalars = {"train/loss": float(loss),
-                               "train/img_mse_loss": mse,
-                               "train/PSNR": -10 * math.log10(max(mse,
-                                                                  1e-10))}
-                    if "depth_loss" in aux:
-                        scalars["train/depth_loss"] = float(aux["depth_loss"])
-                    logger.log_scalars(self.global_step, scalars)
+                if self.global_step % log_every == 0:
+                    self.on_main_rank(self._log, logger, loss, aux)
                 if ckpt_dir and self.global_step % ckpt_every == 0:
-                    self.save(ckpt_dir)
+                    self.on_main_rank(self.save, ckpt_dir)
                 if val_fn is not None and val_every \
                         and self.global_step % val_every == 0:
-                    val_fn(self.global_step)
+                    self.on_main_rank(val_fn, self.global_step)
                 if max_steps and self.global_step >= max_steps:
                     done = True
                     break
             if val_fn is not None and not done:
-                val_fn(self.global_step)      # per epoch, like the reference
+                # per epoch, like the reference
+                self.on_main_rank(val_fn, self.global_step)
             if done:
                 break
         if ckpt_dir:
-            self.save(ckpt_dir)
+            self.on_main_rank(self.save, ckpt_dir)
         return torch.stack(losses).cpu().tolist() if losses else []
+
+    def _log(self, logger, loss, aux):
+        if logger is None:
+            return
+        mse = float(aux["img_mse"])
+        scalars = {"train/loss": float(loss), "train/img_mse_loss": mse,
+                   "train/PSNR": -10 * math.log10(max(mse, 1e-10))}
+        if "depth_loss" in aux:
+            scalars["train/depth_loss"] = float(aux["depth_loss"])
+        logger.log_scalars(self.global_step, scalars)
 
     # ---------------------------------------------------------- validate ---
 

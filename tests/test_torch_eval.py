@@ -11,7 +11,11 @@
   JAX's exact render over its baked volume: PSNR abs <= 1e-2 dB, SSIM and
   abs_err abs <= 1e-3, acc@t within 2 pixels' share;
 - the `evaluate` CLI end to end on `--device cpu` over
-  scripts/make_synthetic_scene.py's scene with an exported checkpoint.
+  scripts/make_synthetic_scene.py's scene with an exported checkpoint;
+  with `--net_type v2` on a v2 checkpoint (whose keys are v0's) its
+  render equals JAX's v2 render of the same volume and rays (abs <=
+  1e-5 x (1 + max|ref|)) and not JAX's v0 render; `render_video` takes
+  `--net_type v2` too.
 """
 
 import json
@@ -24,7 +28,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from torch_port_common import jax_params, port_modules
+from torch_port_common import jax_mlp_params, jax_params, port_modules
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.default_rng(17)
@@ -354,3 +358,81 @@ def test_evaluate_cli_train_split_info(synthetic_scan):
     np.testing.assert_allclose(val_c2ws, ds.poses, atol=1e-5)
     # the focal at this dataset's scale, as read_meta sets it
     assert ds.focal[0] == pytest.approx(180.0 * 0.1 * 4, rel=1e-6)
+
+
+def test_evaluate_cli_renders_a_v2_checkpoint_as_v2(synthetic_scan,
+                                                    tmp_path, monkeypatch):
+    """A v2 (`Renderer_linear`) checkpoint has v0's keys and shapes, so it
+    loads into either MLP strictly; `--net_type v2` must render it as v2.
+    The CLI's first image against JAX's chunked render of the port's own
+    volume and rays with the v2 MLP and with the v0 MLP of the same
+    weights."""
+    from mvsnerf_tpu.config import config_parser as jax_config
+    from mvsnerf_tpu.eval.evaluate import Evaluator as JaxEvaluator
+    from mvsnerf_tpu.io.torch_ckpt import export_reference_checkpoint
+    from mvsnerf_tpu_torch import evaluate as cli
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    datadir, _ = synthetic_scan
+    mlp_p, mvs_p = jax_mlp_params("v2", 7), jax_params(0)[1]
+    ckpt = str(tmp_path / "v2.tar")
+    export_reference_checkpoint(ckpt, mlp_p, mvs_p)
+    seen = []
+    render = Evaluator.render
+
+    def recording(self, rays, H, W, mode="chunked"):
+        out = render(self, rays, H, W, mode)
+        seen.append((self.mlp.net_type, [a for a in self.scene], rays,
+                     out["rgb"]))
+        return out
+
+    monkeypatch.setattr(Evaluator, "render", recording)
+    monkeypatch.chdir(tmp_path)
+    flags = ["--imgScale_train", "0.1", "--imgScale_test", "0.1", "--pad",
+             "4", "--N_samples", "16"]
+    cli.main(["--dataset_name", "dtu_ft", "--datadir", datadir, "--ckpt",
+              ckpt, "--expname", "v2", "--fixed_sources", "--render_mode",
+              "chunked", "--chunk", "256", "--device", "cpu",
+              "--net_type", "v2", *flags])
+    assert len(seen) == 4 and all(s[0] == "v2" for s in seen)
+    _, (volume, imgs, nf, pose), rays, rgb = seen[0]
+    refs = {}
+    for net_type in ("v2", "v0"):
+        jev = JaxEvaluator(jax_config(flags + ["--net_type", net_type]),
+                           None, mvs_p, mlp_p)
+        refs[net_type] = np.asarray(jev.render_rays_buffer(
+            np.asarray(rays), jnp.asarray(volume.numpy()),
+            jnp.asarray(imgs.numpy()), nf.numpy(),
+            {k: jnp.asarray(v.numpy()) for k, v in pose.items()},
+            chunk=1024)["rgb"])
+    ours = rgb.numpy()
+    tol = 1e-5 * (1 + np.abs(refs["v2"]).max())
+    np.testing.assert_allclose(ours, refs["v2"], rtol=0, atol=tol)
+    assert np.abs(ours - refs["v0"]).max() > 100 * tol
+
+
+def test_render_video_takes_net_type_v2(synthetic_scan, tmp_path,
+                                        monkeypatch):
+    """`render_video --net_type v2` builds the fine-tune system with the
+    v2 MLP from the checkpoint and renders on the chunked route."""
+    from mvsnerf_tpu.io.torch_ckpt import export_reference_checkpoint
+    from mvsnerf_tpu_torch import render_video as cli
+    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
+    datadir, _ = synthetic_scan
+    ckpt = str(tmp_path / "v2.tar")
+    export_reference_checkpoint(ckpt, jax_mlp_params("v2", 7),
+                                jax_params(0)[1])
+    systems = []
+    init = FinetuneSystem.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        systems.append(self)
+
+    monkeypatch.setattr(FinetuneSystem, "__init__", recording)
+    monkeypatch.chdir(tmp_path)
+    frames = cli.main(["--dataset_name", "dtu_ft", "--datadir", datadir,
+                       "--ckpt", ckpt, "--expname", "v2", "--imgScale_train",
+                       "0.1", "--pad", "4", "--N_samples", "8", "--device",
+                       "cpu", "--net_type", "v2"], n_frames=3)
+    assert systems[0].mlp.net_type == "v2"
+    assert frames and all(np.isfinite(f).all() for f in frames)

@@ -105,8 +105,9 @@ def case(tmp_path_factory):
                 ckpt=ckpt, batches=batches)
 
 
-def _jax_stepper(case):
-    """The JAX reference step (jitted) and its initial state."""
+def _jax_stepper(case, net_type="v0", mlp=None):
+    """The JAX reference step (jitted) and its initial state, for the MLP
+    of `net_type` (`mlp`, else the case's v0 weights)."""
     from mvsnerf_tpu.ops.geometry import get_ndc_coordinate
     from mvsnerf_tpu.ops.sampling import ray_marcher
     from mvsnerf_tpu.render.renderer import render_rays
@@ -125,7 +126,7 @@ def _jax_stepper(case):
                                  near=near_far[0], far=near_far[1], pad=PAD)
         out = render_rays(params["mlp"], params["volume"], pts, ndc, z,
                           rays_d, w2c_ref=w2cs[0], w2cs=w2cs,
-                          intrinsics=intrs, imgs=imgs,
+                          intrinsics=intrs, imgs=imgs, net_type=net_type,
                           fast_volume_grad=False, mlp_impl="xla")
         return jnp.mean((out["rgb"] - rgbs) ** 2)
 
@@ -139,8 +140,8 @@ def _jax_stepper(case):
         updates, opt_state = opt.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state, loss, grads
 
-    params = {"mlp": case["mlp"], "volume": jnp.asarray(case["volume"]),
-              "mvsnet": case["mvs"]}
+    params = {"mlp": case["mlp"] if mlp is None else mlp,
+              "volume": jnp.asarray(case["volume"]), "mvsnet": case["mvs"]}
     return step, params, opt.init(params)
 
 
@@ -347,10 +348,44 @@ def test_reference_checkpoint_volume_loads(case, tmp_path):
                                   case["volume"])
 
 
-@pytest.mark.parametrize("extra", ["--net_type v2"])
+@pytest.mark.parametrize("extra", ["--net_type v1 --use_density_volume"])
 def test_unported_options_are_refused(case, extra):
-    with pytest.raises(NotImplementedError):
+    """The density refresh needs an alpha head, which v1 lacks."""
+    with pytest.raises(NotImplementedError, match="no alpha head|has none"):
         _port_system(case, extra)
+
+
+def test_v2_step_matches_jax(case, tmp_path):
+    """`--net_type v2` (which v0's refusal used to stop): one step on the
+    module's MLP (K7 takes v0 alone) from a v2 reference checkpoint,
+    against JAX's XLA route at the same weights, volume and batch: loss
+    rel <= 1e-5, gradients abs <= 1e-4 x max|g|."""
+    from mvsnerf_tpu.io.torch_ckpt import export_reference_checkpoint
+    from mvsnerf_tpu_torch.io.torch_ckpt import state_dicts_from_jax
+    from torch_port_common import jax_mlp_params
+    mlp_p = jax_mlp_params("v2", 3)
+    ckpt = str(tmp_path / "v2.tar")
+    export_reference_checkpoint(ckpt, mlp_p, case["mvs"],
+                                volume=case["volume"])
+    port = _port_system(dict(case, ckpt=ckpt), "--net_type v2")
+    assert port.mlp.net_type == "v2" and not port.mlp.runs_v0_kernels
+    step, params, opt_state = _jax_stepper(case, "v2", mlp_p)
+    b = case["batches"][0]
+    _, _, loss, grads = step(params, opt_state, jnp.asarray(b["rays"]),
+                             jnp.asarray(b["rgbs"]))
+    ours = _port_step(port, b)
+    assert abs(ours - float(loss)) <= 1e-5 * abs(float(loss))
+    gv = np.asarray(grads["volume"])
+    assert np.abs(gv).max() > 0
+    np.testing.assert_allclose(port.volume.grad.numpy(), gv, rtol=0,
+                               atol=1e-4 * np.abs(gv).max())
+    ref_sd = state_dicts_from_jax(jax.tree.map(np.asarray, grads["mlp"]),
+                                  None, "v2")[0]
+    for name, p in port.mlp.named_parameters():
+        g = ref_sd[name]
+        np.testing.assert_allclose(p.grad.numpy(), g.numpy(), rtol=0,
+                                   atol=1e-4 * g.abs().max().item(),
+                                   err_msg=name)
 
 
 def test_msgpack_snapshots_are_refused(case, tmp_path):

@@ -41,7 +41,6 @@ from torch_port_common import jax_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H = W = 32
 PAD, N_SAMPLES, BATCH, POOL, STEPS = 4, 16, 256, 1024, 3
-NEAR_FAR = (2.0, 6.0)
 KINK = 5e-6
 # Adam's first updates are lr x g / (|g| + eps) element by element: where
 # |g| lies at the float32 noise of a gradient, the two runs' updates differ
@@ -54,34 +53,10 @@ PARTS = ("mlp.", "mvsnet.cost_reg_2.", "mvsnet.feature.")
 
 def _sample(seed=9, n_views=4):
     """A generalizable batch (the shape of MVSDatasetDTU's samples): views
-    on an arc around the scene, the target last, GT depths with holes."""
-    from mvsnerf_tpu_torch.data.common import normalize_imagenet
-    rng = np.random.default_rng(seed)
-    intr = np.array([[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]],
-                    np.float32)
-    w2cs = []
-    for i in range(n_views):
-        a = 0.08 * (i - n_views / 2)
-        m = np.eye(4, dtype=np.float32)
-        m[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
-                     [-np.sin(a), 0, np.cos(a)]]
-        m[:3, 3] = [0.15 * (i - n_views / 2), 0, 0]
-        w2cs.append(m)
-    w2cs = np.stack(w2cs)
-    intr_s4 = intr.copy()
-    intr_s4[:2] /= 4
-    p4 = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
-    p4[:, :3] = intr_s4 @ w2cs[:, :3]
-    depths = rng.uniform(*NEAR_FAR, (n_views, H, W))
-    depths[rng.uniform(size=depths.shape) < 0.3] = 0.0
-    return {
-        "images": normalize_imagenet(
-            rng.uniform(0.2, 0.8, (n_views, H, W, 3))).astype(np.float32),
-        "proj_mats": (p4 @ np.linalg.inv(p4[0]))[:, :3].astype(np.float32),
-        "near_fars": np.tile(np.float32(NEAR_FAR), (n_views, 1)),
-        "w2cs": w2cs, "c2ws": np.linalg.inv(w2cs).astype(np.float32),
-        "intrinsics": np.stack([intr] * n_views),
-        "depths_h": depths.astype(np.float32)}
+    on an arc around the scene, the target last, GT depths with holes
+    (tests/torch_parallel_ranks.py's, which the JAX-free ranks share)."""
+    from torch_parallel_ranks import generalizable_sample
+    return generalizable_sample(seed, n_views, H)
 
 
 def _port_args(ckpt=None, extra=""):
@@ -367,8 +342,48 @@ def test_train_mvs_nerf_cli_writes_and_resumes(dtu_tree, tmp_path,
     assert "resumed from runs_new/cli/ckpts at step 2" in \
         capsys.readouterr().out
     assert "ckpt_000000003.pt" in os.listdir(run / "ckpts")
-    with pytest.raises(NotImplementedError):
-        main(argv + ["3", "--num_devices", "2"])
+    # more ranks than cards raises, naming both counts; no quiet drop to
+    # one rank and no quiet move to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    card = [a for a in argv if a not in ("--device", "cpu")]
+    with pytest.raises(ValueError, match="2 ranks, one a card, but torch "
+                                         "sees 1 card"):
+        main(card + ["3", "--num_devices", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="WORLD_SIZE 2"):
+        main(argv + ["3", "--num_devices", "3"])
+
+
+def test_train_mvs_nerf_cli_two_ranks_on_cpu(dtu_tree, tmp_path,
+                                             monkeypatch, capfd):
+    """`--num_devices 2 --device cpu` spawns 2 gloo ranks: rank 0 alone
+    writes metrics.csv (train and val rows) and the snapshots, and a
+    second run resumes both ranks from the same snapshot."""
+    from mvsnerf_tpu_torch.train_mvs_nerf import main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--dataset_name", "dtu", "--datadir", dtu_tree, "--scan_list",
+            os.path.join(dtu_tree, "scans.txt"), "--expname", "dp",
+            "--imgScale_train", "0.25", "--imgScale_test", "0.25", "--pad",
+            "4", "--N_samples", "8", "--batch_size", "64", "--N_vis", "1",
+            "--with_depth_loss", "--device", "cpu", "--num_devices", "2",
+            "--ckpt_every", "1", "--max_steps"]
+    main(argv + ["2"])
+    run = tmp_path / "runs_new/dp"
+    assert sorted(os.listdir(run / "ckpts")) == ["ckpt_000000001.pt",
+                                                 "ckpt_000000002.pt"]
+    assert sorted(os.listdir(run)) == ["ckpts", "metrics.csv"]
+    rows = (run / "metrics.csv").read_text().splitlines()
+    assert "val/PSNR" in rows[0].split(",") and len(rows) == 2
+    capfd.readouterr()
+    main(argv + ["3"])
+    out = capfd.readouterr().out
+    assert out.count("resumed from runs_new/dp/ckpts at step 2") == 1
+    assert "1 steps on cpu x 2 ranks" in out
+    assert "ckpt_000000003.pt" in os.listdir(run / "ckpts")
+    rows = (run / "metrics.csv").read_text().splitlines()
+    assert rows[-1].split(",")[0] == "3"
 
 
 # -------------------------------------------------------------- device ---

@@ -59,6 +59,9 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.data.llff",
     "mvsnerf_tpu_torch.data.synthetic",
     "mvsnerf_tpu_torch.native",
+    "mvsnerf_tpu_torch.parallel",
+    "mvsnerf_tpu_torch.parallel.mesh",
+    "mvsnerf_tpu_torch.parallel.sharding",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
