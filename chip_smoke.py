@@ -13,7 +13,9 @@ density volume with importance sampling and `--use_disp`, and the fusion
 trainer; then the Blender (800x800) and LLFF (960x640) datasets through
 their loaders, the fine-tune trainer, every render mode and the CLIs;
 then data-parallel training and the ray-sharded render, and the v1, v2
-and fusion MLPs.
+and fusion MLPs; then resuming from the JAX package's `.msgpack`
+snapshots, the batch driver, the validation panels and the reference
+helpers.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -203,6 +205,35 @@ and fusion MLPs.
      module's MLP under autograd), `evaluate --net_type v2` through the
      CLI on an LLFF scene at 960x640 (and its `tiled` mode refused); K6,
      K6b, K7 and K8 never launch for these MLPs.
+ 15. the JAX package's `.msgpack` snapshots, the batch driver, the
+     generalizable validation panels and the reference helpers: (a)
+     phase 6's fine-tune at full width, 5 steps, its state written as a
+     `.pt` (`save`) and as JAX's `.msgpack` (`write_jax_snapshot`, ~450
+     MB), each restored into a fresh system; every parameter, moment, Adam
+     step, lr and the global step bit-equal across the two and to the
+     writer's; 3 steps from each held to each other (STEP_TOL,
+     TOL_STEP_GRAD, as a step against its twins); encode and restore times
+     and the files' sizes; again with `--use_color_volume` (C = 20, ~1.1
+     GB, no MVSNet in Adam); (b) the same for phase 7's generalizable step
+     (2 steps of a 10-step schedule, then 2 from each on the same draws)
+     and phase 12's fused (128, 128, 128, 20) volume (one step each way);
+     (c) `run_batch.scene_commands` for Blender `lego` at 800x800 (written
+     into a temporary directory with a seeded reference checkpoint), run as
+     two processes side by side on the card from that directory (the
+     evaluation reads the reference checkpoint, not the fine-tune's
+     output), the fine-tune cut to
+     RUN_BATCH_STEPS steps by an appended `--max_steps` (the phase's only
+     cut): both exit 0, the snapshot, `metrics.json` and the CSV's
+     val/PSNR exist, their walls, whether TensorBoard events were written;
+     then `render_video --render_mode tiled` from that run's snapshot
+     written as JAX's `.msgpack`: the step restored, CLI_FRAMES finite
+     frames; (d) `train_mvs_nerf.validate` on phase 7's system and a
+     640x512 sample: the `val_00` panel, 3 x 640 wide, and val/PSNR; (e)
+     `build_rays_test` and `build_rays_train` (the same CPU generator's
+     draws) at 640x512, `sweep_side_outputs` and `build_cost_volume_feat`
+     at DTU width and `gen_angle_feature` on the card against the CPU
+     (1e-5 of the CPU's max; mask flips counted, only at the border); the
+     launches of K1, K2, K4, K5, K6b, K7 and K8 in the phase's process.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -215,6 +246,8 @@ kernel's path) and
 
 import contextlib
 import copy
+import importlib.util
+import io
 import json
 import math
 import os
@@ -332,6 +365,15 @@ BUILD_AGAIN = 2
 # steps)
 DP_TIMED, DP_RANKS, DP_STEPS, MLP_STEPS = 10, 2, 3, 10
 MLP_TYPES = ("v1", "v2", "fusion")
+# phase 15: run_batch's fine-tune of one scene is cut to RUN_BATCH_STEPS
+# steps (its only cut; the reference runs 10,000). Two generalizable
+# systems restored from one snapshot take bit-equal-state first steps
+# (within TOL_STEP_GRAD); after it their states part by the atomics' and
+# cuDNN's summation order, which batch-statistics norms and Adam's eps
+# amplify: the second step's gradients then lie 3.4e-4 to 2.2e-3 x
+# max|g| apart (PR 17's runs, the .msgpack and the .pt route alike), and
+# are held to TOL_RESUMED_GRAD x max|g|
+RUN_BATCH_STEPS, TOL_RESUMED_GRAD = 200, 1e-2
 
 
 def require(cond, msg):
@@ -4092,6 +4134,565 @@ def parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms):
 
 
 
+def same_state(a, b, path="state"):
+    """The places two `state()` dicts differ, bit for bit: tensors by
+    `torch.equal` (dtype and device too), everything else by ==."""
+    import torch
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys {sorted(map(str, a))} / "
+                    f"{sorted(map(str, b))}"]
+        return [d for k in a for d in same_state(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths {len(a)} / {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in same_state(x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        ok = a.dtype == b.dtype and a.device == b.device and \
+            a.shape == b.shape and bool(torch.equal(a, b))
+        return [] if ok else [f"{path}: tensors differ"]
+    return [] if a == b else [f"{path}: {a!r} / {b!r}"]
+
+
+def trained(system):
+    """(the part of each trained tensor, the tensors, their gradients), in
+    Adam's order, detached copies. Parts: the volume, the MLP, CostRegNet,
+    FeatureNet."""
+    part = {id(system.volume): "volume"} \
+        if getattr(system, "volume", None) is not None else {}
+    for name, m in (("MLP", system.mlp),
+                    ("CostRegNet", system.mvsnet.cost_reg_2),
+                    ("FeatureNet", system.mvsnet.feature)):
+        part.update({id(p): name for p in m.parameters()})
+    params = [p for g in system.optimizer.param_groups for p in g["params"]]
+    return ([part[id(p)] for p in params],
+            [p.detach().clone() for p in params],
+            [None if p.grad is None else p.grad.detach().clone()
+             for p in params])
+
+
+def step_distance(a, b, lrate):
+    """How far one step of system a lies from one of b: (loss rel, the
+    gradients' max difference over each part's max|g|, the updates' where
+    |g| > 1e-7 over lr, whether every update lies within 2 lr of b's and
+    tensors with no gradient match). `a` and `b` are (loss, parts, before,
+    after, grads)."""
+    import torch
+    (la, parts, ba, aa, ga), (lb, _, bb, ab, gb) = a, b
+    gmax, gerr, upd, ok = {}, {}, 0.0, True
+    for part, p0a, p1a, g_a, p0b, p1b, g_b in zip(parts, ba, aa, ga, bb, ab,
+                                                   gb):
+        if g_b is None:
+            ok &= g_a is None and bool(torch.equal(p1a, p1b))
+            continue
+        gmax[part] = max(gmax.get(part, 0.0), float(g_b.abs().max()))
+        gerr[part] = max(gerr.get(part, 0.0), max_err(g_a, g_b))
+        du = (p1a - p0a) - (p1b - p0b)
+        firm = g_b.abs() > 1e-7
+        if bool(firm.any()):
+            upd = max(upd, float(du[firm].abs().max()) / lrate)
+        ok &= float(du.abs().max()) <= 2 * lrate
+    rel = {k: gerr[k] / g if g > 0 else
+           (0.0 if gerr[k] == 0 else float("inf")) for k, g in gmax.items()}
+    return abs(la - lb) / abs(lb), rel, upd, ok
+
+
+def hold_steps(phase, what, steps, lrate, failures, control=None):
+    """Two resumed systems' steps held to each other. `steps` holds per
+    step the (loss, parts, before, after, grads) of each. Every step from
+    states that are bit-equal (all of them without `control`) by
+    step_parity's and phase 14's rules: the losses rel 1e-5, each part's
+    gradients TOL_STEP_GRAD x its max|g|, the updates STEP_TOL x lr where
+    |g| > 1e-7 (Adam turns float32 differences of an eps-sized gradient
+    into update differences of up to lr) and 2 lr everywhere. With
+    `control` (a third system restored from the same `.pt`, stepped
+    beside them) the steps after the first start from states that parted
+    already: they are held to the losses' rule, TOL_RESUMED_GRAD and 2 lr,
+    and the control's own distance from the second system, under the
+    same rules, is printed beside them."""
+    ok, rows = True, []
+    for k, pair in enumerate(steps):
+        loss, rel, upd, bounded = step_distance(*pair, lrate)
+        parted = control is not None and k > 0
+        ok &= bounded and loss <= 1e-5 and all(
+            v <= (TOL_RESUMED_GRAD if parted else TOL_STEP_GRAD)
+            for v in rel.values()) and (parted or upd <= STEP_TOL)
+        row = (f"loss rel {loss:.2e}, gradients of max|g| "
+               f"{ {n: f'{v:.2e}' for n, v in rel.items()} }, updates "
+               f"where |g| > 1e-7 {upd:.2e} x lr")
+        if parted:
+            c_loss, c_rel, c_upd, c_ok = step_distance(control[k], pair[1],
+                                                       lrate)
+            ok &= c_ok and c_loss <= 1e-5 and all(
+                v <= TOL_RESUMED_GRAD for v in c_rel.values())
+            row += (f" (tol {TOL_RESUMED_GRAD:.0e} x max|g|, 2 lr; the "
+                    f"control .pt run: loss {c_loss:.2e}, gradients "
+                    f"{ {n: f'{v:.2e}' for n, v in c_rel.items()} }, "
+                    f"updates {c_upd:.2e})")
+        rows.append(row)
+    print(f"[{phase} steps] {what}, step by step: " +
+          "; ".join(f"{k + 1}: {r}" for k, r in enumerate(rows)))
+    check(ok, f"[{phase}] {what}: the resumed steps disagree", failures)
+
+
+def snapshot_pair(phase, kind, system, step, tmp, make_fresh, failures):
+    """Write `system`'s state as a `.pt` (`save`) and as the JAX package's
+    `.msgpack` (`write_jax_snapshot`), restore each into a fresh system of
+    `make_fresh()` and hold all three states bit-equal. Returns (the .pt
+    system, the .msgpack system)."""
+    import torch
+    from mvsnerf_tpu_torch.io.jax_snapshot import write_jax_snapshot
+    state = system.state() if kind == "generalizable" else system.state(step)
+    d = os.path.join(tmp, f"{phase}_{kind}")
+    ms = {}
+    _, ms["pt save"] = synced_ms(lambda: system.save(d) if kind ==
+                                 "generalizable" else system.save(d, step))
+    pt = os.path.join(d, f"ckpt_{step:09d}.pt")
+    msgpack = os.path.join(d, "jax", f"ckpt_{step:09d}.msgpack")
+    _, ms["msgpack encode"] = synced_ms(
+        lambda: write_jax_snapshot(msgpack, state, kind, system))
+    out = []
+    for name, path in ((".pt", pt), (".msgpack", msgpack)):
+        fresh = make_fresh()
+        got, ms[f"{name} restore"] = synced_ms(
+            lambda: fresh.restore(path, strict=True))
+        check(got == step, f"[{phase}] {path} restored step {got}, not "
+              f"{step}", failures)
+        out.append(fresh)
+    diffs = {name: same_state(state, s.state() if kind == "generalizable"
+                              else s.state(step))
+             for name, s in ((".pt", out[0]), (".msgpack", out[1]))}
+    sizes = {k: os.path.getsize(p) / 2 ** 20 for k, p in
+             ((".pt", pt), (".msgpack", msgpack))}
+    opt = out[1].optimizer
+    print(f"[{phase} snapshot] {kind}: .msgpack {sizes['.msgpack']:.1f} MiB "
+          f"(.pt {sizes['.pt']:.1f}); ms: " +
+          ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) +
+          f"; Adam states {len(opt.state)} at step "
+          f"{sorted({float(s['step']) for s in opt.state.values()})}, lr "
+          f"{opt.param_groups[0]['lr']:.6g}; state differences from the "
+          f"writer's: .pt {diffs['.pt'][:3]}, .msgpack "
+          f"{diffs['.msgpack'][:3]}")
+    check(not diffs[".pt"] and not diffs[".msgpack"],
+          f"[{phase}] a restored {kind} state is not the writer's", failures)
+    torch.cuda.empty_cache()
+    return out
+
+
+def finetune_resume(dev, mlp, mvsnet, tmp, extra, failures):
+    """15a: phase 6's fine-tune at full width (and with `extra`): 5 steps,
+    the state through both snapshot formats into fresh systems, then 3
+    steps from each held to each other."""
+    import torch
+    from mvsnerf_tpu_torch.train.common import RayBatchIterator
+    scene = FinetuneScene(np.random.default_rng(SEED + 2))
+    system = finetune_system(dev, mlp, mvsnet, scene, extra)
+    losses = system.fit(num_steps=5, seed=SEED, val_every=0)
+    check(all(math.isfinite(v) for v in losses),
+          "[15a] non-finite fine-tune loss", failures)
+    pt_sys, mp_sys = snapshot_pair(
+        "15a", "finetune", system, 5, tmp,
+        lambda: finetune_system(dev, mlp, mvsnet, scene, extra), failures)
+    in_adam = {id(p) for g in mp_sys.optimizer.param_groups
+               for p in g["params"]}
+    check((id(next(mp_sys.mvsnet.parameters())) in in_adam) ==
+          (not extra), "[15a] Adam holds the MVSNet with the colour volume "
+          "or misses it without", failures)
+    del system
+    torch.cuda.empty_cache()
+    it = RayBatchIterator({"rays": scene.all_rays, "rgbs": scene.all_rgbs},
+                          FT_BATCH, seed=SEED + 15)
+    gen = torch.Generator(device=dev)
+    pairs = []
+    for k in range(3):
+        batch = next(it)
+        rays, rgbs = (torch.from_numpy(batch[n]).to(dev)
+                      for n in ("rays", "rgbs"))
+        rec = []
+        for s in (mp_sys, pt_sys):
+            _, before, _ = trained(s)
+            gen.manual_seed(SEED * 2 ** 32 + 5 + k)
+            loss = float(s._step(rays, rgbs, gen))
+            parts, after, grads = trained(s)
+            rec.append((loss, parts, before, after, grads))
+        pairs.append(rec)
+    hold_steps("15a", f"volume {tuple(pt_sys.volume.shape)}, .msgpack "
+               "against .pt", pairs, pt_sys.args.lrate, failures)
+    del pt_sys, mp_sys, pairs
+    torch.cuda.empty_cache()
+
+
+def generalizable_resume(dev, mlp, mvsnet, tmp, failures):
+    """15b: phase 7's generalizable step: 2 steps of `fit` over a 10-step
+    schedule, both snapshot formats, then 2 steps from each on the same
+    draws, beside a control restored from the same `.pt` (hold_steps).
+    Returns the writer system (phase 15d validates with it)."""
+    import torch
+    sample = generalizable_sample(np.random.default_rng(SEED + 3))
+    system = generalizable_system(dev, mlp, mvsnet)
+    losses = system.fit([sample], num_epochs=2, max_steps=10, seed=SEED)
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+          "[15b] the generalizable fit is wrong", failures)
+
+    def fresh():
+        s = generalizable_system(dev, mlp, mvsnet)
+        s.schedule_steps = system.schedule_steps
+        return s
+
+    pt_sys, mp_sys = snapshot_pair("15b", "generalizable", system, 2, tmp,
+                                   fresh, failures)
+    # the control: the same .pt restored again
+    control = fresh()
+    control.restore(os.path.join(tmp, "15b_generalizable",
+                                 "ckpt_000000002.pt"), strict=True)
+    batch = system.batch(sample)
+    gen = torch.Generator(device=dev)
+    pairs, ctl = [], []
+    for k in range(2):
+        gen.manual_seed(SEED + 150 + k)
+        draws = system.draw(batch, gen)
+        rec = []
+        for s in (mp_sys, pt_sys, control):
+            _, before, _ = trained(s)
+            loss, _ = s._step(batch, *draws)
+            parts, after, grads = trained(s)
+            rec.append((float(loss), parts, before, after, grads))
+        pairs.append(rec[:2])
+        ctl.append(rec[2])
+    hold_steps("15b", "generalizable, .msgpack against .pt", pairs,
+               system.args.lrate, failures, control=ctl)
+    del pt_sys, mp_sys, control, pairs, ctl
+    torch.cuda.empty_cache()
+    return system, sample
+
+
+def fusion_resume(dev, mlp, mvsnet, tmp, failures):
+    """15b: phase 12's fused (128, 128, 128, 20) volume: one step, both
+    snapshot formats into copies of the unstepped system, one step each."""
+    import torch
+    mlp = copy.deepcopy(mlp)
+    with torch.no_grad():
+        mlp.nerf.alpha_linear.bias.fill_(FUSE_SIGMA_BIAS)
+    scene = FusionScene(np.random.default_rng(SEED + 12))
+    system = fusion_system(dev, mlp, mvsnet, scene)
+    unstepped = []
+
+    def fresh():
+        s = copy.deepcopy(unstepped[0])
+        s._build_optimizer()  # a copied scheduler would not see Adam's step
+        return s
+
+    unstepped.append(copy.deepcopy(system))
+    system.fit(num_steps=1, seed=SEED, val_every=0)
+    pt_sys, mp_sys = snapshot_pair("15b", "fusion", system, 1, tmp, fresh,
+                                   failures)
+    del system, unstepped[:]
+    rays, rgbs = first_batch(scene, dev)
+    gen = torch.Generator(device=dev)
+    rec = []
+    for s in (mp_sys, pt_sys):
+        _, before, _ = trained(s)
+        gen.manual_seed(SEED * 2 ** 32 + 1)
+        loss = float(s._step(rays, rgbs, gen))
+        parts, after, grads = trained(s)
+        rec.append((loss, parts, before, after, grads))
+    hold_steps("15b", f"fusion {tuple(pt_sys.volume.shape)}, .msgpack "
+               "against .pt", [rec], pt_sys.args.lrate, failures)
+    del pt_sys, mp_sys, rec
+    torch.cuda.empty_cache()
+
+
+def run_batch_scene(dev, mlp, mvsnet, tmp, failures):
+    """15c: `run_batch`'s two commands for Blender `lego` at 800x800, run
+    as processes on the card, side by side, from a directory of their own,
+    the fine-tune cut to RUN_BATCH_STEPS steps; then `render_video --ckpt *.msgpack
+    --render_mode tiled` from that run's snapshot in JAX's format."""
+    import subprocess as sp
+
+    import torch
+    from mvsnerf_tpu_torch import render_video, run_batch
+    from mvsnerf_tpu_torch.config import config_parser
+    from mvsnerf_tpu_torch.data import synthetic
+    from mvsnerf_tpu_torch.data.blender import BlenderDataset
+    from mvsnerf_tpu_torch.data.pairs import get_split
+    from mvsnerf_tpu_torch.io.jax_snapshot import write_jax_snapshot
+    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
+    root = os.path.join(tmp, "nerf_synthetic")
+    t0 = time.perf_counter()
+    synthetic.write_blender_scene(
+        os.path.join(root, "lego"), res=800, seed=SEED + 13,
+        frames=np.concatenate([get_split("lego", "train"),
+                               get_split("lego", "val")]))
+    ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                  mvsnet)
+    print(f"[15c scene] lego at 800x800 and a seeded checkpoint written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    ft_cmd, ev_cmd = run_batch.scene_commands("blender", root, ckpt, "lego")
+    cmds = {"train_finetune": ft_cmd + ["--max_steps", str(RUN_BATCH_STEPS)],
+            "evaluate": ev_cmd}
+    # both at once: the evaluation reads the reference checkpoint, not the
+    # fine-tune's output, and the whole script has 6 minutes
+    logs = {k: os.path.join(tmp, f"{k}.log") for k in cmds}
+    walls, procs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for k, cmd in cmds.items():
+            with open(logs[k], "w") as f:
+                procs[k] = sp.Popen(cmd, cwd=tmp, env=env, stdout=f,
+                                    stderr=sp.STDOUT)
+        while len(walls) < len(procs):
+            for k, proc in procs.items():
+                if k not in walls and proc.poll() is not None:
+                    walls[k] = time.perf_counter() - t0
+            require(time.perf_counter() - t0 < 600,
+                    "[15c] run_batch's processes took over 600 s")
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, proc in procs.items():
+        with open(logs[k]) as f:
+            text = f.read()
+        print(f"[15c run_batch] {k}: exit {proc.returncode}, {walls[k]:.1f} s "
+              f"from the common start; last lines "
+              f"{text.strip().splitlines()[-3:]}")
+        check(proc.returncode == 0, f"[15c] {k} failed: {text[-2000:]}",
+              failures)
+    run = os.path.join(tmp, "runs_fine_tuning", "lego-ft")
+    pt = os.path.join(run, "ckpts", f"ckpt_{RUN_BATCH_STEPS:09d}.pt")
+    metrics = os.path.join(tmp, "results", "lego-eval", "metrics.json")
+    csv_head = ""
+    if os.path.exists(os.path.join(run, "metrics.csv")):
+        with open(os.path.join(run, "metrics.csv")) as f:
+            csv_head = f.readline().strip()
+    events = [n for n in (os.listdir(run) if os.path.isdir(run) else [])
+              if n.startswith("events.out.tfevents")]
+    print(f"[15c run_batch] {pt} {'exists' if os.path.exists(pt) else 'MISSING'}"
+          f"; {metrics} {'exists' if os.path.exists(metrics) else 'MISSING'}"
+          f"; metrics.csv columns {csv_head}; TensorBoard events written: "
+          f"{bool(events)} (tensorboardX on this machine: "
+          f"{importlib.util.find_spec('tensorboardX') is not None})")
+    check(os.path.exists(pt) and os.path.exists(metrics) and
+          "val/PSNR" in csv_head.split(","), "[15c] run_batch's outputs "
+          "are missing", failures)
+    if not os.path.exists(pt):
+        return
+
+    # the run's snapshot in JAX's format, then render_video on each
+    flags = ["--dataset_name", "blender", "--datadir",
+             os.path.join(root, "lego"), "--white_bkgd", "--pad", str(PAD),
+             "--expname", "lego-video", "--render_mode", "tiled"]
+    args = config_parser(flags + ["--ckpt", pt])
+    train = BlenderDataset(args, "train")
+    w, h = train.img_wh
+    system = FinetuneSystem(args, train, device=dev)
+    system.restore(pt, strict=True)
+    msgpack = os.path.join(tmp, "jax_ckpts", f"ckpt_{RUN_BATCH_STEPS:09d}"
+                           ".msgpack")
+    write_jax_snapshot(msgpack, system.state(RUN_BATCH_STEPS), "finetune",
+                       system)
+    del system, train
+    with contextlib.chdir(tmp), contextlib.redirect_stdout(io.StringIO()) \
+            as out:
+        frames, ms = synced_ms(lambda: render_video.main(
+            flags + ["--ckpt", msgpack], n_frames=CLI_FRAMES))
+    restored = f"restored {msgpack} (step {RUN_BATCH_STEPS})" in \
+        out.getvalue()
+    ok = restored and len(frames) == CLI_FRAMES and all(
+        f.shape == (h, 2 * w, 3) and np.isfinite(f).all() for f in frames)
+    print(f"[15c render_video] --ckpt {os.path.basename(msgpack)} "
+          f"--render_mode tiled: restored step {RUN_BATCH_STEPS}: "
+          f"{restored}; {len(frames)} frames of "
+          f"{frames[0].shape if frames else None} in {ms / 1e3:.1f} s")
+    check(ok, "[15c] render_video from the .msgpack snapshot is wrong",
+          failures)
+    torch.cuda.empty_cache()
+
+
+def validation_panels(system, sample, tmp, failures):
+    """15d: the generalizable CLI's `validate` on phase 7's system and one
+    of its 640x512 samples: the [target | rgb | depth] panel and val/PSNR."""
+    from PIL import Image
+    from mvsnerf_tpu_torch.train_mvs_nerf import validate
+    from mvsnerf_tpu_torch.utils.logging import MetricLogger
+    log_dir = os.path.join(tmp, "val")
+    logger = MetricLogger(log_dir)
+    (val_psnr, ms) = synced_ms(lambda: validate(
+        system, logger, [sample], system.global_step, 1,
+        system.args.chunk * 8))
+    panel = os.path.join(log_dir, f"val_00_{system.global_step:08d}.png")
+    shape = np.asarray(Image.open(panel)).shape \
+        if os.path.exists(panel) else None
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        head = f.readline().strip()
+    print(f"[15d validate] {os.path.basename(panel)} {shape}, val/PSNR "
+          f"{val_psnr:.3f}, {ms:.0f} ms; metrics.csv columns {head}")
+    check(shape == (H, 3 * W, 3) and "val/PSNR" in head.split(",") and
+          math.isfinite(val_psnr), "[15d] the validation panel or its PSNR "
+          "is wrong", failures)
+
+
+def card_vs_cpu(card, cpu, skip=None):
+    """max |card - CPU| over max |CPU|, where `skip` is False."""
+    card = card.cpu()
+    if skip is not None:
+        card, cpu = card[~skip], cpu[~skip]
+    return max_err(card, cpu) / max(float(cpu.abs().max()), 1e-30)
+
+
+def reference_helpers(dev, failures):
+    """15e: the reference helpers on the card against the CPU: the ray
+    builders at 640x512, the sweep's side outputs and the feature-only
+    variance volume at DTU width, gen_angle_feature."""
+    import torch
+    from mvsnerf_tpu_torch.ops.geometry import build_rays_test, \
+        build_rays_train
+    from mvsnerf_tpu_torch.ops.homography import build_cost_volume_feat, \
+        plane_sweep_grid, sweep_side_outputs
+    from mvsnerf_tpu_torch.render.renderer import gen_angle_feature
+    rng = np.random.default_rng(SEED + 15)
+    imgs_norm, projs, pose_src = make_scene(rng)
+    imgs = torch.from_numpy(np.ascontiguousarray(
+        imgs_norm * np.float32([0.229, 0.224, 0.225]) +
+        np.float32([0.485, 0.456, 0.406])))
+    h, w = imgs.shape[1:3]
+    intr = torch.from_numpy(pose_src["intrinsics"])
+    w2cs = torch.from_numpy(pose_src["w2cs"])
+    c2w_t = torch.linalg.inv(torch.from_numpy(pose(0, 0.02, 0.1)))
+    nf = torch.tensor(NEAR_FAR)
+    errs, flips = {}, {}
+
+    def on(x, d):
+        return x.to(d) if isinstance(x, torch.Tensor) else x
+
+    def both(fn, *a, **k):
+        return fn(*(on(x, dev) for x in a), **k), fn(*a, **k)
+
+    card, cpu = both(build_rays_test, h, w, c2w_t, w2cs[0], intr[0], nf, nf,
+                     N_SAMPLES, pad=PAD)
+    errs["build_rays_test"] = max(card_vs_cpu(a, b)
+                                  for a, b in zip(card, cpu) if b is not None)
+    depth = torch.from_numpy(rng.uniform(2, 5, (h, w)).astype(np.float32))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(SEED)
+        out.append(build_rays_train(
+            gen, imgs[1].to(d), depth.to(d), intr[1].to(d), c2w_t.to(d),
+            w2cs[0].to(d), intr[0].to(d), nf.to(d), nf.to(d), FT_BATCH,
+            N_SAMPLES, pad=PAD))
+    errs["build_rays_train"] = max(card_vs_cpu(a, b) for a, b in zip(*out)
+                                   if b is not None)
+    depths = torch.linspace(NEAR_FAR[0], NEAR_FAR[1], N_PLANES)
+    projs_t = torch.from_numpy(projs)
+    feats = torch.from_numpy(rng.standard_normal(
+        (3, h // 4, w // 4, 32)).astype(np.float32))
+    # a mask flips where a sample lies within float32 rounding of the
+    # source view's border (the two devices' grids differ in the last
+    # bits): counted, and each must sit at |grid| = 1 +- 1e-5. The sampled
+    # values move by their image's slope times those bits (random images
+    # have slopes up to 1 a pixel): each device is held to a float64 run
+    # (on the card), the card within TOL_K7_BWD x the CPU's float32
+    # distance from it
+    sampled = {}
+    grids = torch.stack([plane_sweep_grid(projs_t[i].double(),
+                                          depths.double(), h // 4, w // 4,
+                                          PAD) for i in (1, 2)])
+    edge = ((grids.abs() - 1).abs() <= 1e-5).any(-1)
+    for name, fn, args in (("sweep_side_outputs", sweep_side_outputs,
+                            (imgs, projs_t)),
+                           ("build_cost_volume_feat", build_cost_volume_feat,
+                            (feats, projs_t))):
+        # (values, masks) of each run: the sweep's side outputs come as
+        # (masks, colours)
+        (v_card, m_card), (v_cpu, m_cpu), (v64, m64) = (
+            o[::-1] if name == "sweep_side_outputs" else o
+            for o in (*both(fn, *args, depths, PAD),
+                      [t.cpu() for t in fn(*(a.to(dev, torch.float64)
+                                              for a in args),
+                                            depths.to(dev, torch.float64),
+                                            PAD)]))
+        flip = m_card.cpu() != m_cpu
+        near = edge.any(0) if name == "build_cost_volume_feat" else \
+            torch.cat([torch.ones_like(edge[:1]), edge])
+        flips[name] = (int(flip.sum()), bool((~flip | near).all()))
+        # the variance of a voxel whose mask count differs between two runs
+        # is another quantity: those voxels are left out
+        flip |= m_cpu.double() != m64
+        keep = flip[..., None].expand_as(v_cpu) if \
+            name == "build_cost_volume_feat" else None
+        if name == "sweep_side_outputs":  # the mask channel is in colours
+            v_card, v_cpu, v64 = v_card[..., :3], v_cpu[..., :3], \
+                v64[..., :3]
+        d_card = card_vs_cpu(v_card.double(), v64, skip=keep)
+        d_cpu = card_vs_cpu(v_cpu.double(), v64, skip=keep)
+        errs[name] = card_vs_cpu(v_card, v_cpu, skip=keep)
+        sampled[name] = (d_card, d_cpu)
+        del v_card, m_card, v_cpu, m_cpu, v64, m64
+    ray = out[1]
+    errs["gen_angle_feature"] = card_vs_cpu(*both(
+        gen_angle_feature, torch.linalg.inv(w2cs), ray.pts_world,
+        ray.dirs_world))
+    print(f"[15e helpers] card vs CPU, max |diff| / max |CPU|: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol 1e-5 for the "
+          f"rays and angles); sampled values' distance from float64 / its "
+          f"max, card and CPU: "
+          f"{ {k: f'{a:.2e} / {b:.2e}' for k, (a, b) in sampled.items()} } "
+          f"(tol {TOL_K7_BWD} x the CPU's, floor 1e-6); mask flips (count, "
+          f"all at the border): {flips}")
+    check(all(errs[k] <= 1e-5 for k in errs if k not in sampled) and
+          all(a <= TOL_K7_BWD * max(b, 1e-6) for a, b in sampled.values())
+          and all(ok and n <= 64 for n, ok in flips.values()),
+          "[15e] a reference helper differs on the card", failures)
+
+
+def resume_phase(dev, mlp, mvsnet, failures):
+    """Phase 15: resuming from the JAX package's `.msgpack` snapshots, the
+    batch driver, the generalizable validation panels and the reference
+    helpers; the launches of the phase's own process."""
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    counters = dp_counters()
+    zero_counts(counters)
+    took = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ("", "--use_color_volume"):
+            timed(f"15a{extra and ' C=20'}", finetune_resume, dev, mlp,
+                  mvsnet, tmp, extra, failures)
+        system, sample = timed("15b generalizable", generalizable_resume,
+                               dev, mlp, mvsnet, tmp, failures)
+        timed("15b fusion", fusion_resume, dev, mlp, mvsnet, tmp, failures)
+        timed("15d", validation_panels, system, sample, tmp, failures)
+        del system
+        torch.cuda.empty_cache()
+        timed("15c", run_batch_scene, dev, mlp, mvsnet, tmp, failures)
+    launches = read_counts(counters)
+    timed("15e", reference_helpers, dev, failures)
+    print(f"[15 launches] in this process over 15a-15d: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K4", "K5 fwd",
+                                        "K5 bwd", "K7 fwd", "K7 bwd", "K8",
+                                        "K6b")),
+          "[15] a kernel of the phase's paths never launched", failures)
+    print(f"[15 time] phase 15 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in took.items()) + ")")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4371,6 +4972,11 @@ def main():
     # card) and the v1, v2 and fusion MLPs
     torch.cuda.empty_cache()
     parallel_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, ft_step_ms)
+
+    # ---- 15. resuming from JAX's .msgpack snapshots, run_batch, the
+    # generalizable validation panels, the reference helpers
+    torch.cuda.empty_cache()
+    resume_phase(dev, mlp, mvsnet, failures)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

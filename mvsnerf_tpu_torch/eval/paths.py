@@ -65,5 +65,41 @@ def nerf_video_path(n_frames: int = 60, radius: float = 4.0,
         for th in np.linspace(-180, 180, n_frames + 1)[:-1]])
 
 
+def gen_render_path_pixelnerf(c2w_ref, n_views: int = 30):
+    """The quaternion-spline path of pixelNeRF-style comparisons
+    (mvsnerf_tpu/eval/paths.py:72, reference utils.py:541-573, which
+    shadows its own Rotation import and cannot run as written; this is
+    JAX's working equivalent): 5 keyframe quaternions and a 450 scale
+    through periodic cubic splines, (n_views // 5 * 6, 4, 4) poses
+    relative to `c2w_ref`."""
+    from scipy.interpolate import CubicSpline
+
+    t_in = np.array([0, 2, 3, 5, 6], np.float32)
+    pose_quat = np.array([
+        [0.9698, 0.2121, 0.1203, -0.0039],
+        [0.7020, 0.1578, 0.4525, 0.5268],
+        [0.6766, 0.3176, 0.5179, 0.4161],
+        [0.9085, 0.4020, 0.1139, -0.0025],
+        [0.9698, 0.2121, 0.1203, -0.0039],
+    ])
+    scales = np.full(5, 450.0, np.float32)
+    n_inter = max(n_views // 5, 1)
+    t_out = np.linspace(t_in[0], t_in[-1],
+                        n_inter * int(t_in[-1])).astype(np.float32)
+    s_new = CubicSpline(t_in, scales, bc_type="periodic")(t_out)
+    q_new = CubicSpline(t_in, pose_quat, bc_type="periodic")(t_out)
+    q_new = q_new / np.linalg.norm(q_new, 2, 1)[:, None]
+
+    out = []
+    for q, scale in zip(q_new, s_new):
+        rot = Rotation.from_quat(q).as_matrix()
+        pose = np.eye(4)
+        pose[:3, :3] = rot
+        pose[:3, 3] = rot[:, 2] * scale
+        out.append(c2w_ref @ pose)
+    return np.stack(out)
+
+
 __all__ = ["gen_render_path", "pose_spherical_nerf", "pose_spherical_dtu",
-           "nerf_video_path", "create_spiral_poses", "create_spheric_poses"]
+           "nerf_video_path", "create_spiral_poses", "create_spheric_poses",
+           "gen_render_path_pixelnerf"]

@@ -5,7 +5,12 @@ A snapshot is any picklable state (the fine-tune trainer saves params,
 optimizer state, scheduler state and `global_step`), written to a
 temporary file and moved into place with `os.replace`, so a crash never
 leaves a torn latest snapshot. The newest `keep` snapshots are kept.
-Reading the JAX package's `.msgpack` snapshots is not supported.
+
+A run's directory resumes from its newest `ckpt_*.pt`; when it holds
+none, from its newest `ckpt_*.msgpack`, so that a port run pointed at a
+JAX run's `ckpts/` resumes it (io/jax_snapshot.py reads those). A file
+path is taken by its suffix: `.msgpack` is a JAX snapshot, anything else
+a port one.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import os
 import re
 
 import torch
+
+from .jax_snapshot import read_jax_snapshot
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int, prefix: str = "ckpt_",
@@ -32,8 +39,8 @@ def save_checkpoint(ckpt_dir: str, state, step: int, prefix: str = "ckpt_",
     return path
 
 
-def _list_snapshots(ckpt_dir: str, prefix: str):
-    pat = re.compile(re.escape(prefix) + r"(\d+)\.pt$")
+def _list_snapshots(ckpt_dir: str, prefix: str, suffix: str = ".pt"):
+    pat = re.compile(re.escape(prefix) + r"(\d+)" + re.escape(suffix) + "$")
     out = []
     for name in os.listdir(ckpt_dir):
         m = pat.match(name)
@@ -43,11 +50,40 @@ def _list_snapshots(ckpt_dir: str, prefix: str):
 
 
 def latest_checkpoint(ckpt_dir: str, prefix: str = "ckpt_"):
-    """(step, path) of the newest snapshot in `ckpt_dir`, or None."""
+    """(step, path) of the newest `.pt` snapshot in `ckpt_dir`, else of
+    its newest JAX `.msgpack` snapshot, or None."""
     if not os.path.isdir(ckpt_dir):
         return None
-    snaps = sorted(_list_snapshots(ckpt_dir, prefix))
-    return snaps[-1] if snaps else None
+    for suffix in (".pt", ".msgpack"):
+        snaps = sorted(_list_snapshots(ckpt_dir, prefix, suffix))
+        if snaps:
+            return snaps[-1]
+    return None
+
+
+def snapshot_path(ckpt_path_or_dir: str, strict: bool = False):
+    """The snapshot a trainer's `restore` reads: a file path is that
+    file, a directory its `latest_checkpoint`. None when there is none
+    (FileNotFoundError instead when `strict`)."""
+    if os.path.isfile(ckpt_path_or_dir):
+        return ckpt_path_or_dir
+    latest = latest_checkpoint(ckpt_path_or_dir)
+    if latest is None:
+        if strict:
+            raise FileNotFoundError(f"no ckpt_*.pt or ckpt_*.msgpack "
+                                    f"snapshot in {ckpt_path_or_dir!r}")
+        return None
+    return latest[1]
+
+
+def read_snapshot(path: str, kind: str, system):
+    """The `state()` dict in the snapshot at `path` for `system`, a
+    trainer of `kind`: a JAX `.msgpack` through
+    io/jax_snapshot.read_jax_snapshot, else `load_checkpoint` onto its
+    device."""
+    if path.endswith(".msgpack"):
+        return read_jax_snapshot(path, kind, system)
+    return load_checkpoint(path, system.device)
 
 
 def load_checkpoint(path: str, device=None):

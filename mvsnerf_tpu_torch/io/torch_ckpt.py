@@ -9,7 +9,9 @@ pytrees (nested dicts/lists of arrays) into the same state dicts, with the
 inverse of the JAX importer's transforms (mvsnerf_tpu/io/torch_ckpt.py:
 253-330): linear (in, out) -> (out, in); conv2d HWIO -> OIHW; conv3d DHWIO
 -> OIDHW; the transposed conv's pre-flipped (k3, I, O) kernel -> (I, O, k3)
-with the spatial flip undone.
+with the spatial flip undone. `jax_from_state_dicts` is its inverse: the
+port's state dicts (or any tensors keyed like them, such as Adam's moments)
+back to the JAX package's pytrees.
 """
 
 from __future__ import annotations
@@ -105,6 +107,103 @@ def state_dicts_from_jax(mlp_params, mvsnet_params, net_type: str = "v0"):
         mvs_sd[f"cost_reg_2.{name}.0.weight"] = _t(w)
         _put_abn(mvs_sd, f"cost_reg_2.{name}.1", cr[name]["bn"])
     return fn_sd, mvs_sd
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x, np.float32)
+
+
+def _get_linear(sd, prefix):
+    p = {"kernel": _np(sd[f"{prefix}.weight"]).T.copy()}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _get_abn(sd, prefix):
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"]),
+            "mean": _np(sd[f"{prefix}.running_mean"]),
+            "var": _np(sd[f"{prefix}.running_var"])}
+
+
+def _count(sd, prefix):
+    """How many `<prefix>.<i>.` entries the state dict holds."""
+    n = 0
+    while any(k.startswith(f"{prefix}.{n}.") for k in sd):
+        n += 1
+    return n
+
+
+def _mlp_tree(sd, net_type):
+    """A network_fn state dict of `net_type` -> the JAX MLP pytree."""
+    p = {}
+    for group in ("pts_linears", "views_linears"):
+        n = _count(sd, f"nerf.{group}")
+        if n:
+            p[group] = [_get_linear(sd, f"nerf.{group}.{i}")
+                        for i in range(n)]
+    for name in ("pts_bias", "feature_linear", "alpha_linear", "rgb_linear",
+                 "weight_out", "rgb_out"):
+        seq = net_type == "fusion" and name in _SEQUENTIAL_HEADS
+        prefix = f"nerf.{name}.0" if seq else f"nerf.{name}"
+        if f"{prefix}.weight" in sd:
+            p[name] = _get_linear(sd, prefix)
+    for attn in ("color_attention", "ray_attention"):
+        if f"nerf.{attn}.fc.weight" in sd:
+            p[attn] = {lin: _get_linear(sd, f"nerf.{attn}.{lin}")
+                       for lin in ("w_qs", "w_ks", "w_vs", "fc")}
+            p[attn]["layer_norm"] = {
+                "scale": _np(sd[f"nerf.{attn}.layer_norm.weight"]),
+                "bias": _np(sd[f"nerf.{attn}.layer_norm.bias"])}
+    return p
+
+
+def _mvsnet_tree(sd):
+    """A network_mvs state dict -> the JAX MVSNet pytree."""
+    feat = {}
+    for group in ("conv0", "conv1", "conv2"):
+        feat[group] = [
+            {"conv": {"kernel": np.transpose(_np(
+                sd[f"feature.{group}.{i}.conv.weight"]), (2, 3, 1, 0))},
+             "bn": _get_abn(sd, f"feature.{group}.{i}.bn")}
+            for i in range(_count(sd, f"feature.{group}"))]
+    feat["toplayer"] = {
+        "kernel": np.transpose(_np(sd["feature.toplayer.weight"]),
+                               (2, 3, 1, 0)),
+        "bias": _np(sd["feature.toplayer.bias"])}
+    cr = {}
+    for name in _COSTREG_ENC:
+        cr[name] = {"conv": {"kernel": np.transpose(_np(
+            sd[f"cost_reg_2.{name}.conv.weight"]), (2, 3, 4, 1, 0))},
+            "bn": _get_abn(sd, f"cost_reg_2.{name}.bn")}
+    for name in _COSTREG_DEC:
+        w = _np(sd[f"cost_reg_2.{name}.0.weight"])[:, :, ::-1, ::-1, ::-1]
+        cr[name] = {"deconv": {"kernel": np.transpose(w, (2, 3, 4, 0, 1))},
+                    "bn": _get_abn(sd, f"cost_reg_2.{name}.1")}
+    return {"feature": feat, "cost_reg_2": cr}
+
+
+def _c_order(tree):
+    """Every array C-contiguous (the transposes above are views)."""
+    if isinstance(tree, dict):
+        return {k: _c_order(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_c_order(v) for v in tree]
+    return np.ascontiguousarray(tree)
+
+
+def jax_from_state_dicts(fn_sd, mvs_sd=None, net_type: str = "v0"):
+    """The inverse of `state_dicts_from_jax`: a network_fn state dict of
+    `net_type` (and a network_mvs one) -> the JAX MLP (and MVSNet) pytrees
+    with float32 numpy leaves, in init_mlp's / init_mvsnet's structure.
+    ABN's running statistics become JAX's `mean` / `var` parameters;
+    `num_batches_tracked` has no JAX counterpart. The second is None
+    without `mvs_sd`."""
+    mlp = _c_order(_mlp_tree(fn_sd, net_type))
+    return mlp, (None if mvs_sd is None else _c_order(_mvsnet_tree(mvs_sd)))
 
 
 def modules_from_state_dicts(fn_sd, mvs_sd, device=None,

@@ -7,6 +7,8 @@ half-pixel centred).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -79,14 +81,23 @@ def rays_from_pixels(xs, ys, intrinsic, c2w):
 
 def sample_random_pixels(h: int, w: int, n: int,
                          generator: torch.Generator | None = None,
-                         device=None):
+                         device=None, precrop: bool = False):
     """(xs, ys), each (n,): uniform random INTEGER pixel coordinates as
-    float32 (utils.py:89-93; mvsnerf_tpu/ops/geometry.py:90-105 without
-    the precrop), drawn from `generator` (x first, then y)."""
+    float32 (utils.py:89-93, mvsnerf_tpu/ops/geometry.py:90-105), drawn
+    from `generator` (x first, then y). With `precrop`, then x and y in
+    the centre 2/3 and one uniform: above 0.3 (probability 0.7) the
+    centre draws are taken."""
     if generator is not None:
         device = generator.device
     xs = torch.randint(0, w, (n,), generator=generator, device=device)
     ys = torch.randint(0, h, (n,), generator=generator, device=device)
+    if precrop:
+        xc = torch.randint(w // 6, w - w // 6, (n,), generator=generator,
+                           device=device)
+        yc = torch.randint(h // 6, h - h // 6, (n,), generator=generator,
+                           device=device)
+        if torch.rand((), generator=generator, device=device) > 0.3:
+            xs, ys = xc, yc
     return xs.float(), ys.float()
 
 
@@ -135,3 +146,94 @@ def get_ndc_coordinate_bbox(bbox_min, bbox_max, point_samples):
     min), the fusion trainer's volume coordinates
     (mvsnerf_tpu/ops/geometry.py:148, reference utils.py:134-137)."""
     return (point_samples - bbox_min) / (bbox_max - bbox_min)
+
+
+class RayBatch(NamedTuple):
+    """A batch of rays through a target view with reference-view NDC
+    samples (mvsnerf_tpu/ops/geometry.py:154, the reference's build_rays /
+    build_rays_test tuple, utils.py:148-297)."""
+    pts_world: torch.Tensor      # (N_rays, N_samples, 3)
+    dirs_world: torch.Tensor     # (N_rays, 3), not normalised
+    pts_ndc: torch.Tensor        # (N_rays, N_samples, 3) in [0, 1]
+    z_vals: torch.Tensor         # (N_rays, N_samples)
+    rays_o: torch.Tensor         # (N_rays, 3)
+    colors: torch.Tensor | None  # (N_rays, 3) target colours (train only)
+    depths: torch.Tensor | None  # (N_rays,) target depths (train only)
+    pixel_xy: torch.Tensor       # (N_rays, 2) the pixels' (x, y)
+
+
+def _ray_batch(xs, ys, h, w, intrinsic, c2w, w2c_ref, intrinsic_ref,
+               near_far_target, near_far_ref, n_samples, pad, u=None):
+    """Rays through pixels (xs, ys), depths from the target's near to its
+    far (stratified by `u` when given), world points and their NDC."""
+    dev = intrinsic.device
+    rays_o, rays_d = rays_from_pixels(xs, ys, intrinsic, c2w)
+    n_rays = xs.shape[0]
+    near, far = near_far_target[0], near_far_target[1]
+    t = torch.linspace(0.0, 1.0, n_samples, device=dev)
+    z_vals = (near * (1.0 - t) + far * t).expand(n_rays, n_samples)
+    if u is not None:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        z_vals = lower + (upper - lower) * u
+    rays_o = rays_o.expand(n_rays, 3)
+    pts_world = rays_o[:, None] + z_vals[..., None] * rays_d[:, None]
+    inv_scale = torch.tensor([w - 1.0, h - 1.0], device=dev)
+    pts_ndc = get_ndc_coordinate(w2c_ref, intrinsic_ref, pts_world,
+                                 inv_scale, near=near_far_ref[0],
+                                 far=near_far_ref[1], pad=pad)
+    return pts_world, rays_d, pts_ndc, z_vals, rays_o
+
+
+def build_rays_train(generator, img, depth, target_intrinsic, target_c2w,
+                     w2c_ref, intrinsic_ref, near_far_target, near_far_ref,
+                     n_rays: int, n_samples: int, pad: int = 0,
+                     precrop: bool = False,
+                     perturb: float = 1.0) -> RayBatch:
+    """Training rays (mvsnerf_tpu/ops/geometry.py:169, utils.py:148-241):
+    `n_rays` random pixels of the target view, depths stratified between
+    its near and far, world and reference-NDC sample points, and the
+    target's colour and depth at the integer pixels. The pixels, then
+    with `perturb` > 0 the (n_rays, n_samples) depth jitter, are drawn
+    from `generator` (on its own device; the results are on `img`'s).
+
+    Args:
+        img: (H, W, 3) target image; depth: (H, W) target depth or None.
+    """
+    h, w = img.shape[:2]
+    xs, ys = sample_random_pixels(h, w, n_rays, generator, precrop=precrop)
+    u = None
+    if perturb > 0:
+        u = torch.rand((n_rays, n_samples), generator=generator,
+                       device=generator.device if generator is not None
+                       else None).to(img.device)
+    xs, ys = xs.to(img.device), ys.to(img.device)
+    xi, yi = xs.long(), ys.long()
+    rays = _ray_batch(xs, ys, h, w, target_intrinsic, target_c2w, w2c_ref,
+                      intrinsic_ref, near_far_target, near_far_ref,
+                      n_samples, pad, u)
+    return RayBatch(*rays, img[yi, xi],
+                    None if depth is None else depth[yi, xi],
+                    torch.stack([xs, ys], -1))
+
+
+def build_rays_test(h: int, w: int, tgt_to_world, world_to_ref, intrinsic,
+                    near_far_ref, near_far_target, n_samples: int,
+                    pad: int = 0) -> RayBatch:
+    """Every pixel's ray, depths unjittered (mvsnerf_tpu/ops/geometry.py:
+    211, utils.py:243-297); as there, `intrinsic` serves both the rays and
+    the reference view's NDC."""
+    xs, ys = full_image_pixels(h, w, intrinsic.device)
+    rays = _ray_batch(xs, ys, h, w, intrinsic, tgt_to_world, world_to_ref,
+                      intrinsic, near_far_target, near_far_ref, n_samples,
+                      pad)
+    return RayBatch(*rays, None, None, torch.stack([xs, ys], -1))
+
+
+def get_nearest_pose_ids(tgt_position, ref_positions, num_select: int):
+    """The `num_select` source views nearest the target by camera centre
+    (utils.py:698-711), ties in index order as `jnp.argsort`'s stable
+    sort leaves them."""
+    dists = torch.linalg.norm(ref_positions - tgt_position[None], dim=-1)
+    return torch.argsort(dists, stable=True)[:num_select]

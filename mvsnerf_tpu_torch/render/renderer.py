@@ -61,6 +61,23 @@ def gen_dir_feature(w2c_ref, rays_dir):
     return rays_dir @ w2c_ref[:3, :3].T
 
 
+def gen_angle_feature(c2ws, rays_pts, rays_dir):
+    """Per-source-view angle cosines (mvsnerf_tpu/render/renderer.py:121,
+    reference renderer.py:96-109; no path of either package calls it).
+
+    Args:
+        c2ws: (V, 4, 4); rays_pts: (N, S, 3); rays_dir: (N, 3).
+    Returns:
+        (N, S, V) cosines between each sample-to-camera direction and the
+        ray's direction.
+    """
+    n_rays, n_samples = rays_pts.shape[:2]
+    dirs = rays_pts[:, :, None] - c2ws[:, :3, 3][None, None]
+    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-7)
+    return (dirs * rays_dir.reshape(n_rays, 1, 1, 3)).sum(-1).reshape(
+        n_rays, n_samples, -1)
+
+
 def gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
                   training: bool = False, twins: bool = False,
                   use_color_volume: bool = False):

@@ -10,13 +10,14 @@ render_video.py, reference renderer_video.ipynb), with the same flags:
         --expname lego-video
 
 Builds the fine-tune system from a reference-format `--ckpt` (`.tar`),
-or restores exactly the port snapshot that `--ckpt` names (`ckpt_*.pt`,
-strictly: a missing file raises, and no other snapshot is read), then
-renders 60 frames along the scene's path (`dtu_ft`: its views
-interpolated; `blender`: NeRF's orbit; `llff`: a spheric path of radius
-4, as in JAX) with a depth panel beside each, and writes `results/<expname>.mp4` (a GIF
-without imageio's ffmpeg plugin). Runs on the CUDA card (`--device cpu`
-runs on the CPU).
+or restores exactly the snapshot that `--ckpt` names, the port's
+(`ckpt_*.pt`) or the JAX package's (`ckpt_*.msgpack`, as the root
+render_video.py:27-31 does), strictly: a missing file raises, and no
+other snapshot is read. Then it renders 60 frames along the scene's path
+(`dtu_ft`: its views interpolated; `blender`: NeRF's orbit; `llff`: a
+spheric path of radius 4, as in JAX) with a depth panel beside each, and
+writes `results/<expname>.mp4` (a GIF without imageio's ffmpeg plugin).
+Runs on the CUDA card (`--device cpu` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from . import resolve_device
 from .config import config_parser
 from .data import per_scene_dataset
 from .eval.video import make_path, render_video
-from .train.finetune import FinetuneSystem
+from .train.finetune import SNAPSHOT_SUFFIXES, FinetuneSystem
 
 # the video path of each dataset (the root render_video.py:34-35)
 PATH_KIND = {"blender": "nerf", "llff": "spheric", "dtu_ft": "interp"}
@@ -39,7 +40,7 @@ def main(argv=None, n_frames: int = 60):
     device = resolve_device(args.device)
     train_ds = dataset(args, "train")
     system = FinetuneSystem(args, train_ds, device=device)
-    if args.ckpt and args.ckpt.endswith(".pt"):
+    if args.ckpt and args.ckpt.endswith(SNAPSHOT_SUFFIXES):
         # exactly the named snapshot, as the root render_video.py:27-32
         step = system.restore(args.ckpt, strict=True)
         print(f"restored {args.ckpt} (step {step})")

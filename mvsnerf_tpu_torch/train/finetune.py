@@ -31,8 +31,13 @@ snapshots.
 K8 in the chunked render; every other one runs the module's forward, K4
 and K5 serving all; `--render_mode tiled` raises ValueError at the render for
 any other (K6b is v0-only). Refused with NotImplementedError: the density
-volume with v1 (it has no alpha head), and reading the JAX package's
-`.msgpack` snapshots (ROADMAP.md).
+volume with v1 (it has no alpha head).
+
+Snapshots are the port's `.pt` files; `restore` also reads the JAX
+package's `.msgpack` snapshots (io/jax_snapshot.py), a file by its suffix
+or a directory's newest (`.pt` first). A `.msgpack` `--ckpt` is skipped at
+construction, which builds seeded modules as JAX does
+(finetune.py:66-70); the caller restores it (`render_video`).
 """
 
 from __future__ import annotations
@@ -44,8 +49,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, set_precision_policy
-from ..io.checkpoint import latest_checkpoint, load_checkpoint, \
-    save_checkpoint
+from ..io.checkpoint import read_snapshot, save_checkpoint, snapshot_path
 from ..io.torch_ckpt import load_reference_checkpoint
 from ..models.mvsnet import MVSNet
 from ..models.nerf_mlp import MVSNeRF
@@ -83,6 +87,9 @@ def frustum_point_volume(h, w, d, pad, near_far, intrinsic_s4, c2w):
     pts = pts.reshape(-1, 3) @ c2w[:3, :3].T + c2w[:3, 3]
     return pts.reshape(d, h + 2 * pad, w + 2 * pad, 3)
 
+
+# `--ckpt` suffixes that name a snapshot, not a reference checkpoint
+SNAPSHOT_SUFFIXES = (".pt", ".msgpack")
 
 # the offset of validation from the density refreshes (JAX
 # finetune.py:266, fusion.py:313)
@@ -127,6 +134,8 @@ class FinetuneSystem:
 
     # steps between refreshes of the density volume (JAX finetune.py:245)
     DENSITY_EVERY = 200
+    # the JAX trainer whose `.msgpack` snapshots `restore` reads
+    SNAPSHOT_KIND = "finetune"
 
     def __init__(self, args, dataset_train, dataset_val=None, device=None):
         set_precision_policy()
@@ -137,14 +146,11 @@ class FinetuneSystem:
         self.device = resolve_device(device)
 
         ckpt_volume = None
-        # a port snapshot (`.pt`) is not a reference checkpoint: the caller
-        # restores it after construction (`restore`)
+        # a snapshot (the port's `.pt`, JAX's `.msgpack`) is not a
+        # reference checkpoint: the caller restores it after construction
+        # (`restore`), as JAX finetune.py:66-70 skips `.msgpack`
         if args.ckpt and os.path.exists(args.ckpt) and \
-                not args.ckpt.endswith(".pt"):
-            if args.ckpt.endswith(".msgpack"):
-                raise NotImplementedError(
-                    "reading the JAX package's .msgpack snapshots is not "
-                    "ported yet")
+                not args.ckpt.endswith(SNAPSHOT_SUFFIXES):
             self.mlp, self.mvsnet, ckpt_volume = reference_modules(
                 args, self.device)
         else:
@@ -426,20 +432,14 @@ class FinetuneSystem:
         return save_checkpoint(ckpt_dir, self.state(step), step)
 
     def restore(self, ckpt_path_or_dir: str, strict: bool = False) -> int:
-        """Load a snapshot: a file path loads that file, a directory its
-        newest `ckpt_*.pt`. Returns the restored global step; 0 when nothing
-        was found (raises instead when `strict`)."""
-        if os.path.isfile(ckpt_path_or_dir):
-            path = ckpt_path_or_dir
-        else:
-            latest = latest_checkpoint(ckpt_path_or_dir)
-            if latest is None:
-                if strict:
-                    raise FileNotFoundError(
-                        f"no ckpt_*.pt snapshot in {ckpt_path_or_dir!r}")
-                return 0
-            path = latest[1]
-        return self.load_state(load_checkpoint(path, self.device))
+        """Load a snapshot: a file path loads that file (a JAX `.msgpack`
+        or a port `.pt`), a directory its newest `ckpt_*.pt`, else its
+        newest `ckpt_*.msgpack`. Returns the restored global step; 0 when
+        nothing was found (raises instead when `strict`)."""
+        path = snapshot_path(ckpt_path_or_dir, strict)
+        if path is None:
+            return 0
+        return self.load_state(read_snapshot(path, self.SNAPSHOT_KIND, self))
 
     def load_state(self, state) -> int:
         """Take over a `state()` dict; returns its global step."""

@@ -29,9 +29,16 @@ it folds its colours into 14 feature channels, not the fused volume's 20
 
 On the CPU every kernel runs its plain twin: the splat is JAX's
 eight-corner scatter, written with `index_add_`.
+
+`restore` reads the port's `.pt` snapshots and JAX's fusion `.msgpack`
+ones (`{mlp, volume}` and their Adam moments, io/jax_snapshot.py). A
+`.msgpack` `--ckpt` is refused: JAX's constructor hands `--ckpt` to
+`load_reference_checkpoint` (fusion.py:94-97), which cannot read one.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -145,10 +152,18 @@ class FusionFinetuneSystem(FinetuneSystem):
     VOLUME_DIM = (128, 128, 128)  # reference fusion :101
     # steps between refreshes of the density volume (JAX fusion.py:302)
     DENSITY_EVERY = 500
+    SNAPSHOT_KIND = "fusion"
 
     # ------------------------------------------------------------ fusion ---
 
     def _refuse_unported(self):
+        ckpt = self.args.ckpt
+        if ckpt and ckpt.endswith(".msgpack") and os.path.exists(ckpt):
+            raise ValueError(
+                f"--ckpt {ckpt}: a snapshot is resumed from the run's ckpts/ "
+                f"directory or through restore(path); JAX's fusion trainer "
+                f"reads --ckpt as a reference checkpoint and cannot read a "
+                f".msgpack (mvsnerf_tpu/train/fusion.py:94-97)")
         if self.args.net_type == "v1":
             raise NotImplementedError(
                 "fusion with the v1 MLP: its render folds 6 fused-colour "

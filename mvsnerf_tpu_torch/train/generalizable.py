@@ -22,8 +22,12 @@ gradients, the loss and its parts before Adam steps. Batch-statistics
 norms need no synchronising: every rank normalises the same volume.
 Logging, snapshots and validation run on rank 0, with a barrier after.
 
-Refused with NotImplementedError: reading the JAX package's `.msgpack`
-snapshots.
+`restore` reads the port's `.pt` snapshots and JAX's `.msgpack` ones
+(io/jax_snapshot.py), a file by its suffix or a directory's newest (`.pt`
+first); data-parallel ranks restore the same file. A `.msgpack` `--ckpt`
+is refused with ValueError: JAX's constructor hands `--ckpt` to
+`load_reference_checkpoint` (generalizable.py:45-48), which cannot read
+one.
 """
 
 from __future__ import annotations
@@ -36,8 +40,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device, set_precision_policy
-from ..io.checkpoint import latest_checkpoint, load_checkpoint, \
-    save_checkpoint
+from ..io.checkpoint import read_snapshot, save_checkpoint, snapshot_path
 from ..ops.geometry import full_image_pixels, get_ndc_coordinate, \
     rays_from_pixels, sample_random_pixels
 from ..parallel import allreduce_mean, axis_group, is_main_rank, \
@@ -90,9 +93,12 @@ class GeneralizableSystem:
         self.rays_per_rank = args.batch_size // n_ranks
         if args.ckpt and os.path.exists(args.ckpt):
             if args.ckpt.endswith(".msgpack"):
-                raise NotImplementedError(
-                    "reading the JAX package's .msgpack snapshots is not "
-                    "ported yet")
+                raise ValueError(
+                    f"--ckpt {args.ckpt}: a snapshot is resumed from the "
+                    f"run's ckpts/ directory or through restore(path); "
+                    f"JAX's generalizable trainer reads --ckpt as a "
+                    f"reference checkpoint and cannot read a .msgpack "
+                    f"(mvsnerf_tpu/train/generalizable.py:45-48)")
             self.mlp, self.mvsnet, _ = reference_modules(args, self.device)
         else:
             self.mlp, self.mvsnet = seeded_modules(args, self.device)
@@ -362,20 +368,16 @@ class GeneralizableSystem:
 
     def restore(self, ckpt_path_or_dir: str, strict: bool = False) -> int:
         """Load a snapshot, before or after the first step: a file path
-        loads that file, a directory its newest `ckpt_*.pt`. Returns the
+        loads that file (a JAX `.msgpack` or a port `.pt`), a directory its
+        newest `ckpt_*.pt`, else its newest `ckpt_*.msgpack`. Returns the
         restored global step; 0 when nothing was found (raises instead
-        when `strict`)."""
-        if os.path.isfile(ckpt_path_or_dir):
-            path = ckpt_path_or_dir
-        else:
-            latest = latest_checkpoint(ckpt_path_or_dir)
-            if latest is None:
-                if strict:
-                    raise FileNotFoundError(
-                        f"no ckpt_*.pt snapshot in {ckpt_path_or_dir!r}")
-                return 0
-            path = latest[1]
-        return self.load_state(load_checkpoint(path, self.device))
+        when `strict`). A JAX snapshot's lr is this system's schedule at
+        its count: before the first `fit` fixes the schedule's length
+        (`schedule_steps`), `fit` sets it again, as for a `.pt`."""
+        path = snapshot_path(ckpt_path_or_dir, strict)
+        if path is None:
+            return 0
+        return self.load_state(read_snapshot(path, "generalizable", self))
 
     def load_state(self, state) -> int:
         """Take over a `state()` dict; returns its global step."""

@@ -23,19 +23,28 @@ newest of them by default. `--use_color_volume` trains the colour-baked
 20-channel volume; `--render_mode tiled` renders the validation views
 through K6b; `--use_density_volume --N_importance N` adds N importance
 samples a ray drawn from a density volume baked every 200 steps;
-`--use_disp` samples linearly in disparity. SSIM and the image panels of validation are not ported yet
-(`evaluate.py` has both).
+`--use_disp` samples linearly in disparity. After training, each val view
+logs its PSNR and SSIM and writes its [gt | pred | depth] panel
+`val_<i>_<steps>.png` (the root train_mvs_nerf_finetuning.py:44-58);
+TensorBoard events land beside the CSV when `tensorboardX` imports. A
+run's `ckpts/` holding only a JAX run's `.msgpack` snapshots resumes from
+the newest of them.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from . import resolve_device
 from .config import config_parser
 from .data import per_scene_dataset
+from .eval.metrics import ssim
 from .train.finetune import FinetuneSystem, psnr
 from .utils.logging import MetricLogger
+from .utils.vis import panel, visualize_depth
+
 
 def main(argv=None):
     args = config_parser(argv)
@@ -62,13 +71,17 @@ def main(argv=None):
 
     for i in range(len(val_ds)):
         sample = val_ds[i]
-        gt = sample["rgbs"]
+        gt = np.asarray(sample["rgbs"])
         h, w = gt.shape[:2]
         out = system.render_image(sample["rays"], chunk=args.chunk * 8)
         pred = out["rgb"].clamp(0, 1).cpu().numpy().reshape(h, w, 3)
         val_psnr = psnr(pred, gt)
-        logger.log_scalars(n_steps + i, {"val/PSNR": val_psnr})
+        logger.log_scalars(n_steps + i, {"val/PSNR": val_psnr,
+                                         "val/SSIM": float(ssim(pred, gt))})
+        dvis, _ = visualize_depth(out["depth"].cpu().numpy().reshape(h, w))
+        logger.save_panel(n_steps, f"val_{i:02d}", panel([gt, pred, dvis]))
         print(f"val view {i}: PSNR {val_psnr:.3f}")
+    logger.flush()
 
 
 if __name__ == "__main__":

@@ -10,9 +10,10 @@ fine-tune it for free-viewpoint video.
 
 Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 `--device cpu` it raises). Writes `runs_fine_tuning/<expname>/metrics.csv`
-(train loss and PSNR, val PSNR), the validation panels beside it and
-snapshots under `runs_fine_tuning/<expname>/ckpts/`, and resumes from the
-newest of them. `--N_importance N` adds N importance samples a ray drawn
+(train loss and PSNR, val PSNR), the validation panels beside it (and
+TensorBoard events when `tensorboardX` imports) and snapshots under
+`runs_fine_tuning/<expname>/ckpts/`, and resumes from the newest of them
+(a JAX run's `.msgpack` ones when it holds no `.pt`). `--N_importance N` adds N importance samples a ray drawn
 from a density volume refreshed every 500 steps; `--render_mode tiled`
 renders the validation views through K6b. It takes `--dataset_name
 dtu_ft` only, as JAX's does (the other datasets raise, saying why).
@@ -52,6 +53,7 @@ def main(argv=None):
     if losses:
         print(f"steps {start}..{n_steps - 1} on {device}: loss "
               f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    logger.flush()
 
 
 if __name__ == "__main__":

@@ -11,9 +11,11 @@ Runs on the CUDA card (`--device cpu` runs on the CPU; with no card and no
 loss, MSE, PSNR and depth loss every 100 steps; val PSNR every
 `--val_every` steps, at each epoch end and after the last step) and
 snapshots under `runs_new/<expname>/ckpts/`, and resumes from the newest of
-them by default. It takes `--dataset_name dtu` only, as JAX's does
-(the per-scene datasets raise, saying why); the validation panels are not
-ported.
+them by default (a JAX run's `.msgpack` snapshots too, when the directory
+holds no `.pt`). Each validation writes a [target | rgb | depth] panel
+`val_<i>_<step>.png` per val view beside the CSV, and TensorBoard events
+go there too when `tensorboardX` imports. It takes `--dataset_name dtu`
+only, as JAX's does (the per-scene datasets raise, saying why).
 
 `--num_devices` keeps JAX's meaning (the root train_mvs_nerf.py:34-42): 1
 is one process, 0 every visible card, N > 1 N data-parallel ranks, one a
@@ -45,6 +47,7 @@ from .parallel import init_distributed, is_main_rank, make_mesh
 from .train.finetune import psnr
 from .train.generalizable import GeneralizableSystem
 from .utils.logging import MetricLogger
+from .utils.vis import panel, visualize_depth
 
 
 def n_ranks(args, device) -> int:
@@ -140,29 +143,45 @@ def train(args, device, mesh=None):
     if start and main_rank:
         print(f"resumed from {ckpt_dir} at step {start}")
 
-    def validate(step):
-        """Mean PSNR of the first N_vis val views (the reference's PL val
-        loop, train_mvs_nerf_pl.py:172-254)."""
-        vals = []
-        for i in range(min(len(val_ds), args.N_vis)):
-            out = system.render_view(val_ds[i], chunk=args.chunk * 8)
-            vals.append(psnr(np.clip(out["rgb"], 0, 1), out["target"]))
-        if vals:
-            logger.log_scalars(step, {"val/PSNR": float(np.mean(vals))})
-            print(f"step {step}: val PSNR {np.mean(vals):.3f} over "
-                  f"{len(vals)} views")
+    def val_fn(step):
+        validate(system, logger, val_ds, step, args.N_vis, args.chunk * 8)
 
     losses = system.fit(train_ds, num_epochs=args.num_epochs, logger=logger,
                         ckpt_dir=ckpt_dir, max_steps=args.max_steps or None,
-                        ckpt_every=args.ckpt_every, val_fn=validate,
+                        ckpt_every=args.ckpt_every, val_fn=val_fn,
                         val_every=args.val_every)
     if losses and main_rank:
         ranks = f" x {torch.distributed.get_world_size()} ranks" \
             if mesh is not None else ""
         print(f"{len(losses)} steps on {device}{ranks}: loss "
               f"{losses[0]:.5f} -> {losses[-1]:.5f}")
-    system.on_main_rank(validate, system.global_step)
+    system.on_main_rank(val_fn, system.global_step)
+    if logger is not None:
+        logger.flush()
     return losses
+
+
+def validate(system, logger, val_samples, step: int, n_vis: int,
+             chunk: int = 8192):
+    """Render the first `n_vis` of `val_samples` (`render_view`), write
+    each one's [target | clip(rgb) | depth] panel as `val_{i:02d}` and log
+    their mean PSNR (the root train_mvs_nerf.py:54-67, the reference's PL
+    val loop, train_mvs_nerf_pl.py:172-254). Returns the mean PSNR, or
+    None with no view."""
+    vals = []
+    for i in range(min(len(val_samples), n_vis)):
+        out = system.render_view(val_samples[i], chunk=chunk)
+        rgb = np.clip(out["rgb"], 0, 1)
+        vals.append(psnr(rgb, out["target"]))
+        dvis, _ = visualize_depth(out["depth"])
+        logger.save_panel(step, f"val_{i:02d}",
+                          panel([out["target"], rgb, dvis]))
+    if not vals:
+        return None
+    mean = float(np.mean(vals))
+    logger.log_scalars(step, {"val/PSNR": mean})
+    print(f"step {step}: val PSNR {mean:.3f} over {len(vals)} views")
+    return mean
 
 
 if __name__ == "__main__":

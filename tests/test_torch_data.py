@@ -107,7 +107,9 @@ def test_pfm_round_trip(tmp_path):
 def test_train_finetune_cli_writes_and_resumes(scan, tmp_path, monkeypatch,
                                                capsys):
     """`python -m mvsnerf_tpu_torch.train_finetune` on the tree: trains,
-    writes metrics.csv and a snapshot, and a second run resumes from it."""
+    writes metrics.csv (the val views' PSNR and SSIM, as the root CLI
+    logs them), a panel per val view and a snapshot, and a second run
+    resumes from it."""
     from mvsnerf_tpu_torch.train_finetune import main
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset_name", "dtu_ft", "--datadir", scan, "--expname",
@@ -119,7 +121,10 @@ def test_train_finetune_cli_writes_and_resumes(scan, tmp_path, monkeypatch,
     assert sorted(os.listdir(run / "ckpts")) == ["ckpt_000000002.pt"]
     rows = (run / "metrics.csv").read_text().splitlines()
     assert rows[0].split(",") == ["step", "train/loss", "train/PSNR",
-                                  "val/PSNR"] and len(rows) == 1 + 1 + 4
+                                  "val/PSNR", "val/SSIM"] and \
+        len(rows) == 1 + 1 + 4
+    assert sorted(n for n in os.listdir(run) if n.endswith(".png")) == [
+        f"val_{i:02d}_00000002.png" for i in range(4)]
     main(argv + ["3"])
     assert "resumed from runs_fine_tuning/cli/ckpts at step 2" in \
         capsys.readouterr().out

@@ -14,6 +14,7 @@ the refused options and the flag surface.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -388,12 +389,27 @@ def test_v2_step_matches_jax(case, tmp_path):
                                    err_msg=name)
 
 
-def test_msgpack_snapshots_are_refused(case, tmp_path):
-    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
+@pytest.mark.parametrize("check", ["construction", "strict restore"])
+def test_msgpack_snapshots_are_refused(case, tmp_path, check):
+    """A `.msgpack` `--ckpt` is a JAX snapshot, not a reference checkpoint:
+    construction skips it and builds the seeded modules, as JAX
+    finetune.py:66-70 does; restoring an empty one raises ValueError
+    naming the file."""
+    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem, \
+        seeded_modules
     path = tmp_path / "ckpt_000000001.msgpack"
     path.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        FinetuneSystem(_port_args(str(path)), case["scene"], device="cpu")
+    args = _port_args(str(path))
+    system = FinetuneSystem(args, case["scene"], device="cpu")
+    if check == "construction":
+        mlp, mvsnet = seeded_modules(args, torch.device("cpu"))
+        for ours, ref in ((system.mlp, mlp), (system.mvsnet, mvsnet)):
+            for k, v in ref.state_dict().items():
+                torch.testing.assert_close(ours.state_dict()[k], v,
+                                           rtol=0, atol=0, msg=k)
+    else:
+        with pytest.raises(ValueError, match=re.escape(str(path))):
+            system.restore(str(path), strict=True)
 
 
 def test_config_matches_jax_flags_and_names_tpu_switches(capsys):

@@ -1,5 +1,6 @@
-"""The port imports torch, numpy and scipy only: never jax, never
-mvsnerf_tpu, and none of matplotlib, imageio or PIL at import (the card's
+"""The port imports torch, numpy and scipy only: never jax, flax, msgpack
+or mvsnerf_tpu (it reads and writes JAX's `.msgpack` snapshots with its
+own codec), and none of matplotlib, imageio or PIL at import (the card's
 machine has PIL but neither matplotlib nor imageio; the image loader, the
 scene writers and the PNG and video writers import theirs inside the
 function); importing a kernel module or the native host library builds
@@ -62,6 +63,10 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.parallel",
     "mvsnerf_tpu_torch.parallel.mesh",
     "mvsnerf_tpu_torch.parallel.sharding",
+    "mvsnerf_tpu_torch.io.flax_msgpack",
+    "mvsnerf_tpu_torch.io.jax_snapshot",
+    "mvsnerf_tpu_torch.utils.profiling",
+    "mvsnerf_tpu_torch.run_batch",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,8 +83,8 @@ def test_port_never_imports_jax():
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
-            "                                    'mvsnerf_tpu'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'msgpack', 'mvsnerf_tpu'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = _run(code)
