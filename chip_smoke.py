@@ -15,7 +15,8 @@ their loaders, the fine-tune trainer, every render mode and the CLIs;
 then data-parallel training and the ray-sharded render, and the v1, v2
 and fusion MLPs; then resuming from the JAX package's `.msgpack`
 snapshots, the batch driver, the validation panels and the reference
-helpers.
+helpers; then the DTU path from files: the port's DTU scene writer, every
+DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
 
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      when torch sees no CUDA device;
@@ -234,6 +235,33 @@ helpers.
      at DTU width and `gen_angle_feature` on the card against the CPU
      (1e-5 of the CPU's max; mask flips counted, only at the border); the
      launches of K1, K2, K4, K5, K6b, K7 and K8 in the phase's process.
+ 16. the DTU path from files at bench.py's DTU geometry (640x512,
+     `--imgScale_train 1.0 --imgScale_test 1.0 --pad 24`, 128 planes and
+     samples, batch 1024), run from a temporary directory that is removed
+     at the end: (a) `write_dtu_multiscan` writes the first scan of the
+     packaged train list with 640x512 PNGs (49 views x 7 lights, 49
+     1200x1600 depth maps) and its `scans.txt`: seconds and bytes; (b)
+     `train_mvs_nerf --dataset_name dtu --with_depth_loss` for GEN_WARM +
+     GEN_TIMED steps and one validation panel: ms/step over the last
+     GEN_TIMED beside phase 7's in-memory step, and the share of those
+     steps' wall spent in the `dtu` loader's `__getitem__` (4 PNGs and 4
+     1200x1600 depth maps a sample); (c) `train_finetune --dataset_name
+     dtu_ft` for FT_WARM + FT_TIMED steps, then its 4 val views: the
+     loader's seconds (16 views, 5.2M rays) and ms/step over the last
+     FT_TIMED beside phase 6's; (d) `evaluate --render_mode chunked` on the
+     4 test views with LPIPS weights converted by the port's
+     `convert_lpips_weights` from seeded state dicts: finite PSNR, SSIM,
+     LPIPS in `metrics.json`; (e) `render_video --render_mode tiled` from
+     (c)'s `.pt` snapshot (4 frames: the path's 4 key poses at
+     CLI_FRAMES // 3 frames each); (f) `LPIPS(npz)`, on the card by
+     default, against `LPIPS(npz, "cpu")` on (d)'s first prediction and
+     ground truth (TOL_LPIPS relative), and its ms a call; (g)
+     `metrics_from_panels` over (d)'s panels on the card against
+     `--device cpu` (TOL_PANEL_PSNR, TOL_PANEL_SSIM, TOL_LPIPS), and its
+     mean's distance from (d)'s in-loop metrics (the PNGs' quantisation,
+     not held to a bound). Each CLI's launches are checked (K1, K2, K4,
+     K5, K7, K8 in (b); K1, K4, K5, K7, K8 in (c); K1, K4, K8 in (d); K1,
+     K6b in (e)) and added to the kernels line's counts.
 
 A failed comparison is reported and the remaining phases still run; the
 script then exits non-zero without the result lines. Other errors raise.
@@ -374,6 +402,24 @@ MLP_TYPES = ("v1", "v2", "fusion")
 # max|g| apart (PR 17's runs, the .msgpack and the .pt route alike), and
 # are held to TOL_RESUMED_GRAD x max|g|
 RUN_BATCH_STEPS, TOL_RESUMED_GRAD = 200, 1e-2
+# phase 16: the DTU path from files at bench.py's DTU geometry, on one
+# scan that `write_dtu_scene` writes with 640x512 PNGs (the generalizable
+# loader reads them at their own size). Its only cuts are the step counts:
+# the generalizable CLI takes GEN_WARM + GEN_TIMED steps and the fine-tune
+# CLI FT_WARM + FT_TIMED, timed over the last GEN_TIMED / FT_TIMED as
+# phases 7 and 6 time theirs. LPIPS on the card against the CPU, relative:
+# VGG16 in float32 with TF32 off on both, so only the order of the sums
+# differs. metrics_from_panels on the card against --device cpu: PSNR in
+# dB, SSIM absolute, LPIPS relative
+DTU_HW, DTU_SEED = (512, 640), SEED + 16
+TOL_LPIPS, TOL_PANEL_PSNR, TOL_PANEL_SSIM = 1e-5, 1e-4, 1e-5
+# phase 16's launch counters -> the kernels line's entries they add to
+DTU_ENTRIES = {"K1": "K1 sweep_cost_volume",
+               "K2": "K2 sweep_cost_volume (bwd)",
+               "K4": "K4 color_warp", "K5 fwd": "K5 volume_gather (fwd)",
+               "K5 bwd": "K5 volume_splat (bwd)",
+               "K6b": "K6b render_v0 (baked)", "K7 fwd": "K7 mlp_v0 (fwd)",
+               "K7 bwd": "K7 mlp_v0 (bwd)", "K8": "K8 render_v0_feats"}
 
 
 def require(cond, msg):
@@ -4693,6 +4739,293 @@ def resume_phase(dev, mlp, mvsnet, failures):
           + ", ".join(f"{k} {v:.1f}" for k, v in took.items()) + ")")
 
 
+def stamped(fn, marks, at):
+    """Method `fn` noting in `at[n]` the host clock, after a synchronise,
+    when its n-th call returns, for each n in `marks` (a trainer's `_step`:
+    the steps between two marks are timed as `StepClock` times them)."""
+    import torch
+    calls = [0]
+
+    def wrapper(self, *args, **kw):
+        out = fn(self, *args, **kw)
+        calls[0] += 1
+        if calls[0] in marks:
+            torch.cuda.synchronize()
+            at[calls[0]] = time.perf_counter()
+        return out
+    return wrapper
+
+
+def timed_calls(fn, spans):
+    """`fn` (a function or a method) appending (host clock at entry,
+    seconds) of each call to `spans`."""
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        spans.append((t0, time.perf_counter() - t0))
+        return out
+    return wrapper
+
+
+def lpips_weights(tmp):
+    """16f: seeded torchvision-format VGG16 (He-initialised convolutions)
+    and lpips-head state dicts written with torch.save, then converted by
+    the port's `convert_lpips_weights` CLI; the .npz's path."""
+    import torch
+    from mvsnerf_tpu_torch import convert_lpips_weights
+    from mvsnerf_tpu_torch.eval.metrics import VGG16_CFG
+    gen = torch.Generator().manual_seed(SEED + 16)
+    vgg, cin = {}, 3
+    for idx, cout in zip(convert_lpips_weights.VGG16_CONV_IDX,
+                         [v for v in VGG16_CFG if v != "M"]):
+        vgg[f"features.{idx}.weight"] = torch.randn(
+            cout, cin, 3, 3, generator=gen) * (2.0 / (9 * cin)) ** 0.5
+        vgg[f"features.{idx}.bias"] = torch.randn(cout, generator=gen) * 0.01
+        cin = cout
+    lin = {f"lin{j}.model.1.weight": torch.rand(1, c, 1, 1, generator=gen)
+           for j, c in enumerate([64, 128, 256, 512, 512])}
+    paths = [os.path.join(tmp, f) for f in ("vgg16.pth", "vgg_lin.pth",
+                                            "lpips_vgg.npz")]
+    torch.save(vgg, paths[0])
+    torch.save(lin, paths[1])
+    return convert_lpips_weights.main(["--vgg_pth", paths[0], "--lin_pth",
+                                       paths[1], "--out", paths[2]])
+
+
+def tree_size(root):
+    """(files, bytes) under `root`."""
+    sizes = [os.path.getsize(os.path.join(base, f))
+             for base, _, files in os.walk(root) for f in files]
+    return len(sizes), sum(sizes)
+
+
+def dtu_phase(dev, mlp, mvsnet, failures, kernels, ft_step_ms, gen_step_ms):
+    """Phase 16: the DTU path from files at 640x512 through every DTU CLI,
+    LPIPS on the card and the post-hoc metric tool; adds its launches to
+    the kernels line's entries (DTU_ENTRIES)."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+    from mvsnerf_tpu_torch import evaluate, metrics_from_panels, native, \
+        render_video, train_finetune, train_mvs_nerf
+    from mvsnerf_tpu_torch.data import dtu
+    from mvsnerf_tpu_torch.data.dtu import MVSDatasetDTU, load_scan_list
+    from mvsnerf_tpu_torch.data.dtu_ft import DTUFTDataset
+    from mvsnerf_tpu_torch.data.synthetic import write_dtu_multiscan
+    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.eval.metrics import LPIPS
+    from mvsnerf_tpu_torch.ops.sweep import sweep_cost_volume
+    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
+    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
+    t_phase = time.perf_counter()
+    counters = dict(dataset_counters(), K2=(sweep_cost_volume,
+                                            "bwd_launches"))
+    total = dict.fromkeys(counters, 0)
+    h, w = DTU_HW
+    scan = load_scan_list("train")[0]
+    n_gen, n_ft = GEN_WARM + GEN_TIMED, FT_WARM + FT_TIMED
+
+    def cli(tag, label, needed, run):
+        zero_counts(counters)
+        out, ms = synced_ms(run)
+        counts = read_counts(counters)
+        for k, n in counts.items():
+            total[k] += n
+        print(f"[16{tag} cli] {label}: {ms / 1e3:.1f} s, launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        check(all(counts[k] > 0 for k in needed),
+              f"[16{tag}] {label} never launched one of {needed}", failures)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        # ---- (a) the scene, written by the port
+        t0 = time.perf_counter()
+        write_dtu_multiscan(tmp, [scan], img_hw=DTU_HW, seed=DTU_SEED)
+        write_s = time.perf_counter() - t0
+        n_files, n_bytes = tree_size(tmp)
+        print(f"[16a scene] {scan} at {w}x{h}: {n_files} files, "
+              f"{n_bytes / 2 ** 20:.1f} MiB written in {write_s:.2f} s "
+              f"({n_bytes / 2 ** 20 / write_s:.0f} MiB/s)")
+        check(n_files == 49 * (1 + 7 + 1) + 1,
+              "[16a] the scene's files are missing", failures)
+        ckpt = save_seeded_checkpoint(os.path.join(tmp, "seeded.tar"), mlp,
+                                      mvsnet)
+        npz = lpips_weights(tmp)
+        geometry = ["--pad", str(PAD), "--N_samples", str(N_SAMPLES),
+                    "--imgScale_train", "1.0", "--imgScale_test", "1.0",
+                    "--ckpt", ckpt]
+
+        # ---- (b) the generalizable CLI on the dtu loader
+        marks, spans, pngs, depths = {}, [], [], []
+        with swapped(GeneralizableSystem, "_step",
+                     stamped(GeneralizableSystem._step, {GEN_WARM, n_gen},
+                             marks)), \
+                swapped(MVSDatasetDTU, "__getitem__",
+                        timed_calls(MVSDatasetDTU.__getitem__, spans)), \
+                swapped(MVSDatasetDTU, "read_depth",
+                        timed_calls(MVSDatasetDTU.read_depth, depths)), \
+                swapped(dtu, "load_image",
+                        timed_calls(dtu.load_image, pngs)):
+            losses = cli("b", "train_mvs_nerf --dataset_name dtu",
+                         ("K1", "K2", "K4", "K5 fwd", "K5 bwd", "K7 fwd",
+                          "K7 bwd", "K8"),
+                         lambda: train_mvs_nerf.main(geometry + [
+                             "--dataset_name", "dtu", "--datadir", tmp,
+                             "--scan_list", os.path.join(tmp, "scans.txt"),
+                             "--batch_size", str(GEN_BATCH),
+                             "--with_depth_loss", "--max_steps", str(n_gen),
+                             "--N_vis", "1", "--expname", "smoke_dtu"]))
+        t_a, t_b = marks[GEN_WARM], marks[n_gen]
+        gen_ms = (t_b - t_a) * 1e3 / GEN_TIMED
+        window = [s for t, s in spans if t_a < t < t_b]
+        load_share = sum(window) / (t_b - t_a)
+        png_ms, depth_ms = (sum(s for t, s in parts if t_a < t < t_b) * 1e3
+                            / max(len(window), 1) for parts in (pngs, depths))
+        panel = os.path.join("runs_new", "smoke_dtu",
+                             f"val_00_{n_gen:08d}.png")
+        shape = np.asarray(Image.open(panel)).shape \
+            if os.path.exists(panel) else None
+        print(f"[16b fit] {len(losses)} steps, loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}; steps {GEN_WARM + 1}-{n_gen}: "
+              f"{gen_ms:.2f} ms/step from files (phase 7 in memory "
+              f"{gen_step_ms:.2f}); the dtu loader's __getitem__ "
+              f"{sum(window) * 1e3 / max(len(window), 1):.2f} ms a sample "
+              f"({len(window)} in the window; its 4 PNG decodes "
+              f"{png_ms:.2f} ms, its 4 depth maps {depth_ms:.2f} ms, "
+              f"native.available() {native.available()}), "
+              f"{100 * load_share:.1f} % of the steps' wall; panel "
+              f"{os.path.basename(panel)} {shape}")
+        check(len(losses) == n_gen and len(window) == GEN_TIMED and
+              all(math.isfinite(v) for v in losses) and
+              shape == (h, 3 * w, 3),
+              "[16b] the generalizable CLI's losses, loader or validation "
+              "panel are wrong", failures)
+
+        # ---- (c) the fine-tune CLI on the dtu_ft loader, then its 4 val
+        # views
+        ft_dir = os.path.join(tmp, scan)
+        marks, inits = {}, []
+        with swapped(FinetuneSystem, "_step",
+                     stamped(FinetuneSystem._step, {FT_WARM, n_ft}, marks)), \
+                swapped(DTUFTDataset, "__init__",
+                        timed_calls(DTUFTDataset.__init__, inits)):
+            cli("c", "train_finetune --dataset_name dtu_ft",
+                ("K1", "K4", "K5 fwd", "K5 bwd", "K7 fwd", "K7 bwd", "K8"),
+                lambda: train_finetune.main(geometry + [
+                    "--dataset_name", "dtu_ft", "--datadir", ft_dir,
+                    "--batch_size", str(FT_BATCH), "--with_rgb_loss",
+                    "--max_steps", str(n_ft), "--expname", "smoke_dtu_ft"]))
+        ft_ms = (marks[n_ft] - marks[FT_WARM]) * 1e3 / FT_TIMED
+        val_panels = sorted(f for f in os.listdir(os.path.join(
+            "runs_fine_tuning", "smoke_dtu_ft")) if f.startswith("val_"))
+        print(f"[16c fit] the dtu_ft loader: train ({FT_VIEWS} views, "
+              f"{FT_VIEWS * h * w} rays) {inits[0][1]:.2f} s, val (4 views "
+              f"with GT depth) {inits[1][1]:.2f} s; steps {FT_WARM + 1}-"
+              f"{n_ft}: {ft_ms:.2f} ms/step from files, "
+              f"{FT_BATCH / ft_ms * 1e3:.0f} rays/s (phase 6 in memory "
+              f"{ft_step_ms:.2f}); val panels {val_panels}")
+        check(len(inits) == 2 and len(val_panels) == 4,
+              "[16c] the fine-tune CLI's loaders or val panels are wrong",
+              failures)
+
+        # ---- (d) evaluate on the 4 test views with LPIPS on the card
+        first = {}
+        score = Evaluator._score
+
+        def first_scored(self, pred, gt, *args):
+            first.setdefault("pair", (pred.copy(), gt.copy()))
+            return score(self, pred, gt, *args)
+
+        with swapped(Evaluator, "_score", first_scored):
+            metrics = cli("d", "evaluate --render_mode chunked",
+                          ("K1", "K4", "K8"),
+                          lambda: evaluate.main(geometry + [
+                              "--dataset_name", "dtu_ft", "--datadir",
+                              ft_dir, "--render_mode", "chunked",
+                              "--lpips_weights", npz, "--expname",
+                              "smoke_dtu_eval"]))
+        mean = metrics["mean"]
+        with open(os.path.join("results", "smoke_dtu_eval",
+                               "metrics.json")) as f:
+            saved = json.load(f)["mean"]
+        print(f"[16d evaluate] mean over {len(metrics['per_image'])} test "
+              f"views: { {k: round(v, 5) for k, v in mean.items()} }")
+        check(len(metrics["per_image"]) == 4 and saved == mean and
+              all(math.isfinite(mean[k]) for k in ("psnr", "ssim", "lpips")),
+              "[16d] evaluate's metrics are wrong", failures)
+
+        # ---- (e) render_video from (c)'s snapshot
+        snapshot = os.path.join("runs_fine_tuning", "smoke_dtu_ft", "ckpts",
+                                f"ckpt_{n_ft:09d}.pt")
+        frames = cli("e", "render_video --render_mode tiled", ("K1", "K6b"),
+                     lambda: render_video.main(geometry + [
+                         "--dataset_name", "dtu_ft", "--datadir", ft_dir,
+                         "--render_mode", "tiled", "--ckpt", snapshot,
+                         "--expname", "smoke_dtu_video"],
+                         n_frames=CLI_FRAMES))
+        # the interp path: 4 key poses, n_frames // 3 frames each
+        print(f"[16e video] {len(frames)} frames of "
+              f"{frames[0].shape if frames else None}")
+        check(len(frames) == 4 * (CLI_FRAMES // 3) and
+              all(f.shape == (h, 2 * w, 3) for f in frames),
+              "[16e] render_video's frames are wrong", failures)
+
+        # ---- (f) LPIPS on the card against the CPU on (d)'s first
+        # prediction and ground truth
+        pred, gt = (torch.from_numpy(x * 2 - 1).to(dev)
+                    for x in first["pair"])
+        on_card = LPIPS(npz)
+        card = float(on_card(pred, gt))
+        cpu = float(LPIPS(npz, "cpu")(pred.cpu(), gt.cpu()))
+        rel = abs(card - cpu) / abs(cpu)
+        lpips_ms = cuda_ms(lambda: on_card(pred, gt), reps=5)
+        print(f"[16f lpips] LPIPS(npz) on {on_card.device}: {card!r}, on "
+              f"the CPU {cpu!r}: rel diff {rel:.2e} (tol {TOL_LPIPS:.0e}); "
+              f"{lpips_ms:.2f} ms a {w}x{h} pair on the card")
+        check(on_card.device.type == "cuda" and rel <= TOL_LPIPS,
+              "[16f] LPIPS on the card disagrees with the CPU", failures)
+
+        # ---- (g) the post-hoc metrics of (d)'s panels, card and CPU
+        flags = ["--panels", os.path.join("results", "smoke_dtu_eval",
+                                          "*.png"),
+                 "--width", str(w), "--lpips_weights", npz]
+        with contextlib.redirect_stdout(io.StringIO()):
+            panels_card, panels_ms = synced_ms(
+                lambda: metrics_from_panels.main(flags))
+            panels_cpu = metrics_from_panels.main(flags + ["--device", "cpu"])
+        rows = list(zip(panels_card["per_image"], panels_cpu["per_image"]))
+        d_psnr = max(abs(a["psnr"] - b["psnr"]) for a, b in rows)
+        d_ssim = max(abs(a["ssim"] - b["ssim"]) for a, b in rows)
+        d_lpips = max(abs(a["lpips"] - b["lpips"]) / abs(b["lpips"])
+                      for a, b in rows)
+        vs_evaluate = {k: float(f"{panels_card['mean'][k] - mean[k]:.3e}")
+                       for k in ("psnr", "ssim", "lpips")}
+        print(f"[16g panels] metrics_from_panels on {len(rows)} panels, "
+              f"card against --device cpu: PSNR {d_psnr:.2e} dB (tol "
+              f"{TOL_PANEL_PSNR:.0e}), SSIM {d_ssim:.2e} (tol "
+              f"{TOL_PANEL_SSIM:.0e}), LPIPS rel {d_lpips:.2e} (tol "
+              f"{TOL_LPIPS:.0e}); {panels_ms / 1e3:.2f} s on the card; its "
+              f"mean minus evaluate's (the PNGs' 8 bits): {vs_evaluate}")
+        check(len(rows) == 4 and d_psnr <= TOL_PANEL_PSNR and
+              d_ssim <= TOL_PANEL_SSIM and d_lpips <= TOL_LPIPS,
+              "[16g] metrics_from_panels on the card disagrees with the CPU",
+              failures)
+
+    for key, name in DTU_ENTRIES.items():
+        next(k for k in kernels if k["name"] == name)["launches"] += \
+            total[key]
+    print(f"[16 launches] over (b)-(e): "
+          f"{ {k: n for k, n in total.items() if n} }")
+    print(f"[16 summary] scene written in {write_s:.2f} s; "
+          f"generalizable {gen_ms:.2f} ms/step from files against "
+          f"{gen_step_ms:.2f} in memory, the dtu loader "
+          f"{100 * load_share:.1f} % of it; fine-tune {ft_ms:.2f} against "
+          f"{ft_step_ms:.2f}, its loader {inits[0][1]:.2f} s; LPIPS "
+          f"{lpips_ms:.2f} ms")
+    print(f"[16 time] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4977,6 +5310,11 @@ def main():
     # generalizable validation panels, the reference helpers
     torch.cuda.empty_cache()
     resume_phase(dev, mlp, mvsnet, failures)
+
+    # ---- 16. the DTU path from files at 640x512: the scene writer, every
+    # DTU CLI, LPIPS on the card and the post-hoc metric tool
+    torch.cuda.empty_cache()
+    dtu_phase(dev, mlp, mvsnet, failures, kernels, ft_step_ms, cudnn_step_ms)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

@@ -1,6 +1,13 @@
-"""Hermetic scenes in the Blender and LLFF datasets' on-disk formats, made
-from a seed, for the tests and `chip_smoke.py` (no dataset is shipped):
+"""Hermetic scenes in the DTU, Blender and LLFF datasets' on-disk formats,
+made from a seed, for the tests, `chip_smoke.py` and the CLIs (no dataset
+is shipped):
 
+- `write_dtu_scene`: a DTU tree (`Cameras/train/`, `Rectified/<scan>_train/`
+  with 7 lights a view, `Depths/<scan>/` of 1200x1600 depth maps) of 49
+  views in an arc looking at a textured plane ~700 mm away;
+  `write_dtu_multiscan` writes several scans under one `Cameras/` and
+  their `scans.txt`. Both write the same bytes as the JAX package's
+  scripts/make_synthetic_scene.py for the same arguments;
 - `write_blender_scene`: `transforms_train.json` with NeRF-synthetic's
   lego field of view and 100 frames on a sphere of radius 4 about the
   origin (Blender / OpenGL c2w, z up), and RGBA PNGs of random pixels
@@ -11,9 +18,9 @@ from a seed, for the tests and `chip_smoke.py` (no dataset is shipped):
   [H, W, focal] of a 4032x3024 phone capture, near bounds 1.5-2.0 and far
   bounds 12-16.
 
-The directory's name picks the pair table's split (`lego`, `fern`, ...);
-the loaders read only the frames the split names. PIL is imported by the
-writers only."""
+For Blender and LLFF the directory's name picks the pair table's split
+(`lego`, `fern`, ...); the loaders read only the frames the split names.
+PIL is imported by the writers only."""
 
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import json
 import os
 
 import numpy as np
+
+from .common import write_cam_file, write_pfm
 
 # NeRF-synthetic lego's horizontal field of view (transforms_train.json)
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618
@@ -105,3 +114,62 @@ def write_llff_scene(root, wh=(960, 640), n=20, seed=0):
         img = rng.integers(0, 256, (wh[1], wh[0], 3), np.uint8)
         Image.fromarray(img).save(
             os.path.join(root, "images", f"IMG_{i:04d}.png"))
+
+
+def write_dtu_scene(root, n_views=49, scan="scan1", img_hw=(192, 240),
+                    seed=None):
+    """One DTU scan under `root` (scripts/make_synthetic_scene.py:20-57):
+    49 views so that the pair tables index validly. The cameras'
+    intrinsics are DTU's at 640x512: the per-scene loader resizes the
+    PNGs, but the generalizable one at downSample 1.0 reads each at its
+    own size with them, so write `img_hw=(512, 640)` for it. The GT
+    depths are 1200x1600 for the loaders' fixed crop. `seed` defaults to
+    the sum of the scan name's code points, so the scans of one tree
+    differ."""
+    from PIL import Image
+
+    if seed is None:
+        seed = sum(ord(c) for c in scan)
+    rng = np.random.default_rng(seed)
+    os.makedirs(f"{root}/Cameras/train", exist_ok=True)
+    os.makedirs(f"{root}/Rectified/{scan}_train", exist_ok=True)
+    os.makedirs(f"{root}/Depths/{scan}", exist_ok=True)
+
+    # a textured plane at depth ~700 mm viewed by an arc of cameras
+    h, w = img_hw
+    tex = rng.uniform(0.1, 0.9, (32, 32, 3))
+    base = np.tile(tex, (h // 32 + 1, w // 32 + 1, 1))[:h, :w]
+    for vid in range(n_views):
+        a = 0.02 * (vid - n_views / 2)
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        ext = np.eye(4)
+        ext[:3, :3] = R
+        ext[:3, 3] = [8.0 * (vid - n_views / 2), 0, 600]
+        intr = np.array([[180.0, 0, 80], [0, 180.0, 64], [0, 0, 1]])
+        write_cam_file(f"{root}/Cameras/train/{vid:08d}_cam.txt", intr, ext,
+                       425.0, 2.5)
+        img = np.roll(base, vid * 3, axis=1)
+        for light in range(7):
+            arr = np.clip(img * (0.7 + 0.05 * light), 0, 1)
+            Image.fromarray((arr * 255).astype(np.uint8)).save(
+                f"{root}/Rectified/{scan}_train/"
+                f"rect_{vid + 1:03d}_{light}_r5000.png")
+        depth = np.full((1200, 1600), 700.0, np.float32) + \
+            rng.uniform(-20, 20, (1200, 1600)).astype(np.float32)
+        write_pfm(f"{root}/Depths/{scan}/depth_map_{vid:04d}.pfm", depth)
+    print(f"wrote synthetic DTU scene to {root}/{scan}")
+
+
+def write_dtu_multiscan(root, scans, **scene):
+    """Several scans under `root` sharing one `Cameras/` (the DTU layout),
+    and `<root>/scans.txt` for `--scan_list`
+    (scripts/make_synthetic_scene.py:60-69). `scene` holds
+    `write_dtu_scene`'s keywords for every scan. Take the scan names from
+    the packaged train list (scan3, scan4, ...) so that the pair tables
+    index validly."""
+    for scan in scans:
+        write_dtu_scene(root, scan=scan, **scene)
+    with open(f"{root}/scans.txt", "w") as f:
+        f.write("\n".join(scans) + "\n")
+    print(f"wrote {len(scans)} synthetic scans + {root}/scans.txt")

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
+
 
 def _t(x, device=None):
     if torch.is_tensor(x):
@@ -103,7 +105,8 @@ class LPIPS:
     """VGG16 LPIPS distance on `F.conv2d`. The weights file is the JAX
     package's .npz layout: 'conv{i}_kernel' (HWIO) and 'conv{i}_bias' for
     the 13 convolutions, 'lin{j}' (C_j,) for the 5 heads. Raises when the
-    file is absent: nothing is downloaded."""
+    file is absent: nothing is downloaded. Runs on the card unless
+    `device` names the CPU, and raises with no card (`resolve_device`)."""
 
     def __init__(self, weights_path: str, device=None):
         if not os.path.exists(weights_path):
@@ -111,7 +114,7 @@ class LPIPS:
                 f"LPIPS weights not found at {weights_path}; convert the "
                 "official lpips VGG weights to npz")
         data = np.load(weights_path)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.convs = [
             (_t(np.transpose(data[f"conv{i}_kernel"], (3, 2, 0, 1)),
                 self.device),

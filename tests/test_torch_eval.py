@@ -95,11 +95,11 @@ def test_lpips_matches_jax(tmp_path):
     path = _lpips_weights(tmp_path / "lpips.npz")
     a = RNG.uniform(-1, 1, (48, 64, 3)).astype(np.float32)
     b = np.clip(a + RNG.normal(0, 0.3, a.shape), -1, 1).astype(np.float32)
-    ours, ref = float(LPIPS(path)(a, b)), float(JaxLPIPS(path)(a, b))
+    ours, ref = float(LPIPS(path, "cpu")(a, b)), float(JaxLPIPS(path)(a, b))
     assert ref > 0 and abs(ours - ref) <= 1e-5 * ref
-    assert float(LPIPS(path)(a, a)) < 1e-6
+    assert float(LPIPS(path, "cpu")(a, a)) < 1e-6
     with pytest.raises(FileNotFoundError):
-        LPIPS(str(tmp_path / "missing.npz"))
+        LPIPS(str(tmp_path / "missing.npz"), "cpu")
 
 
 def test_jet_matches_matplotlib():

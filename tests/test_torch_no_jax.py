@@ -67,6 +67,9 @@ SLICE_MODULES = [
     "mvsnerf_tpu_torch.io.jax_snapshot",
     "mvsnerf_tpu_torch.utils.profiling",
     "mvsnerf_tpu_torch.run_batch",
+    "mvsnerf_tpu_torch.make_synthetic_scene",
+    "mvsnerf_tpu_torch.metrics_from_panels",
+    "mvsnerf_tpu_torch.convert_lpips_weights",
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
