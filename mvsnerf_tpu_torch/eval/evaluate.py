@@ -24,6 +24,7 @@ from ..render.hybrid import make_hybrid_renderer
 from ..render.renderer import make_chunked_renderer
 from ..render.tiled import make_tiled_renderer
 from ..train.common import unpreprocess_images
+from ..utils.profiling import trace_context
 from ..utils.vis import panel, visualize_depth, write_png
 from .metrics import abs_error, acc_threshold, psnr, ssim
 
@@ -75,9 +76,11 @@ class Evaluator:
         self.renderers = {}
 
     def _tensor(self, a):
-        if torch.is_tensor(a):
-            return a.to(self.device, torch.float32)
-        return torch.tensor(np.asarray(a, np.float32), device=self.device)
+        with trace_context("upload"):
+            if torch.is_tensor(a):
+                return a.to(self.device, torch.float32)
+            return torch.tensor(np.asarray(a, np.float32),
+                                device=self.device)
 
     @torch.no_grad()
     def build_volume(self, imgs, proj_mats, near_far, pose_source):
@@ -96,16 +99,17 @@ class Evaluator:
             volume (D, hp, wp, 8), imgs in [0, 1], near_far (2,),
             pose_source, all tensors on the evaluator's device.
         """
-        imgs_norm = self._tensor(imgs)
-        nf = self._tensor(near_far)
-        volume, _ = self.mvsnet(imgs_norm, self._tensor(proj_mats), nf,
-                                pad=self.pad, n_planes=self.n_planes,
-                                lindisp=self.lindisp,
-                                costreg_impl=self.costreg_impl)
-        pose = {k: self._tensor(pose_source[k])
-                for k in ("w2cs", "intrinsics")}
-        self.scene = (volume, unpreprocess_images(imgs_norm), nf, pose)
-        self.renderers = {}
+        with trace_context("eval.volume"):
+            imgs_norm = self._tensor(imgs)
+            nf = self._tensor(near_far)
+            volume, _ = self.mvsnet(imgs_norm, self._tensor(proj_mats), nf,
+                                    pad=self.pad, n_planes=self.n_planes,
+                                    lindisp=self.lindisp,
+                                    costreg_impl=self.costreg_impl)
+            pose = {k: self._tensor(pose_source[k])
+                    for k in ("w2cs", "intrinsics")}
+            self.scene = (volume, unpreprocess_images(imgs_norm), nf, pose)
+            self.renderers = {}
         return self.scene
 
     def renderer(self, mode: str):
@@ -131,7 +135,8 @@ class Evaluator:
         Returns:
             dict rgb (H*W, 3), depth (H*W,), acc (H*W,).
         """
-        return self.renderer(mode)(self._tensor(rays), H, W)
+        with trace_context("eval.render"):
+            return self.renderer(mode)(self._tensor(rays), H, W)
 
     def _score(self, pred, gt, depth, sample, lpips_fn, center_crop):
         """One image's metrics (evaluate.py:189-219)."""

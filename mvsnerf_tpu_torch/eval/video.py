@@ -11,6 +11,7 @@ import os
 import numpy as np
 
 from ..data.dtu_ft import rays_for_pose
+from ..utils.profiling import trace_context
 from ..utils.vis import panel, to8b, visualize_depth
 from .paths import (create_spheric_poses, create_spiral_poses,
                     gen_render_path, nerf_video_path, pose_spherical_dtu)
@@ -74,17 +75,24 @@ def render_video(system, poses, h: int, w: int, focal, near_far,
     focal = focal if isinstance(focal, (list, tuple)) else [focal, focal]
     frames = []
     for c2w in poses:
-        c2w4 = np.eye(4, dtype=np.float32)
-        c2w4[:3] = np.asarray(c2w)[:3]
-        rays = rays_for_pose(h, w, focal, center, c2w4, near_far[0],
-                             near_far[1])
-        out = system.render_image(rays, chunk=chunk)
-        rgb = np.clip(out["rgb"].cpu().numpy().reshape(h, w, 3), 0, 1)
-        if with_depth_panel:
-            dvis, _ = visualize_depth(
-                out["depth"].cpu().numpy().reshape(h, w), near_far)
-            rgb = panel([rgb, dvis])
-        frames.append(to8b(rgb))
+        with trace_context("video.frame"):
+            with trace_context("video.rays"):
+                c2w4 = np.eye(4, dtype=np.float32)
+                c2w4[:3] = np.asarray(c2w)[:3]
+                rays = rays_for_pose(h, w, focal, center, c2w4, near_far[0],
+                                     near_far[1])
+            out = system.render_image(rays, chunk=chunk)
+            with trace_context("video.to_host"):
+                rgb = out["rgb"].cpu().numpy()
+                depth = out["depth"].cpu().numpy() if with_depth_panel \
+                    else None
+            with trace_context("video.panel"):
+                rgb = np.clip(rgb.reshape(h, w, 3), 0, 1)
+                if with_depth_panel:
+                    dvis, _ = visualize_depth(depth.reshape(h, w), near_far)
+                    rgb = panel([rgb, dvis])
+            with trace_context("video.to8b"):
+                frames.append(to8b(rgb))
     if out_path is not None:
         render_video.last_path = write_frames(out_path, frames)
     return frames

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops.costreg_conv import conv3d_s1, conv3d_s2, conv3d_up
 from ..ops.homography import build_cost_volume
+from ..utils.profiling import trace_context
 from .layers import ABN, ConvBnReLU, ConvBnReLU3D
 
 N_DEPTH_PLANES = 128  # hardcoded in the reference (models.py:914)
@@ -153,15 +154,20 @@ class MVSNet(nn.Module):
         Returns:
             volume (D, hp, wp, 8) channel-last, depth_values (D,).
         """
-        feats = self.feature(imgs)
-        depth_values = depth_plane_values(near_far[0], near_far[1], n_planes,
-                                          lindisp, device=imgs.device)
-        cost = build_cost_volume(imgs, feats, proj_mats, depth_values,
-                                 pad=pad)
+        with trace_context("mvsnet.features"):
+            feats = self.feature(imgs)
+        with trace_context("mvsnet.sweep"):
+            depth_values = depth_plane_values(near_far[0], near_far[1],
+                                              n_planes, lindisp,
+                                              device=imgs.device)
+            cost = build_cost_volume(imgs, feats, proj_mats, depth_values,
+                                     pad=pad)
         # (D, hp, wp, 41) -> (1, 41, D, hp, wp): the sweep's contiguous
         # output itself, no copy
         route = {} if costreg_impl is None else {"impl": costreg_impl}
-        volume = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None], **route)
+        with trace_context("mvsnet.costreg"):
+            volume = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None],
+                                     **route)
         # squeeze, not [0]: a view both ways (select's backward would fill
         # and copy a 150 MB gradient at DTU size)
         return volume.squeeze(0).permute(1, 2, 3, 0).contiguous(), \

@@ -45,6 +45,7 @@ from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
 from ..ops.render_fused import render_v0_feats, render_v0_feats_plain
 from ..ops.sampling import ray_marcher, ray_marcher_fine
 from ..ops.volume_gather import sample_volume, sample_volume_plain
+from ..utils.profiling import trace_context
 
 
 def build_color_volume(pts_world, w2cs, intrinsics, imgs,
@@ -144,22 +145,25 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
         disp and alpha on the module's route, alpha on K8's with
         `with_alpha`.
     """
-    unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
-                                             keepdim=True)
-    angle = gen_dir_feature(w2c_ref, unit_dirs)
-    feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics, imgs,
-                          training, twins, use_color_volume)
-    if not torch.is_grad_enabled() and mlp.runs_v0_kernels:
-        fused = render_v0_feats_plain if twins else render_v0_feats
-        out = fused(pts_ndc.contiguous(), feats.contiguous(),
-                    angle.contiguous(), z_vals.contiguous(), mlp, with_alpha)
-        if white_bkgd:
-            out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
-    else:
-        raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
-        if raw.shape[-1] > 4:
-            feats = torch.cat([feats[..., :8], raw[..., 4:]], dim=-1)
-        out = raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
+    with trace_context("render.features"):
+        unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
+                                                 keepdim=True)
+        angle = gen_dir_feature(w2c_ref, unit_dirs)
+        feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics,
+                              imgs, training, twins, use_color_volume)
+    with trace_context("render.mlp"):
+        if not torch.is_grad_enabled() and mlp.runs_v0_kernels:
+            fused = render_v0_feats_plain if twins else render_v0_feats
+            out = fused(pts_ndc.contiguous(), feats.contiguous(),
+                        angle.contiguous(), z_vals.contiguous(), mlp,
+                        with_alpha)
+            if white_bkgd:
+                out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
+        else:
+            raw = run_network(mlp, pts_ndc, angle, feats, training, twins)
+            if raw.shape[-1] > 4:
+                feats = torch.cat([feats[..., :8], raw[..., 4:]], dim=-1)
+            out = raw2outputs(raw, z_vals, white_bkgd=white_bkgd)
     out["feats"] = feats
     return out
 
@@ -239,9 +243,10 @@ def make_chunked_renderer(mlp, volume, imgs, near_far, pose_source,
     w2cs, intrinsics = pose_source["w2cs"], pose_source["intrinsics"]
 
     def chunk_fn(rays):
-        pts, rays_d, z_vals, pts_ndc = sample_rays(
-            rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
-            near_far, pad, lindisp=lindisp)
+        with trace_context("render.sample"):
+            pts, rays_d, z_vals, pts_ndc = sample_rays(
+                rays, n_samples, w2cs[0], intrinsics[0], imgs.shape[1:3],
+                near_far, pad, lindisp=lindisp)
         out = render_rays(mlp, volume, pts, pts_ndc, z_vals, rays_d, w2cs[0],
                           w2cs, intrinsics, imgs, white_bkgd=white_bkgd)
         return {k: out[k] for k in ("rgb", "depth", "acc")}

@@ -57,6 +57,7 @@ from ..render.renderer import gen_dir_feature, gen_pts_feats, \
     network_input, render_density, render_image_chunked, render_rays, \
     sample_rays
 from ..render.tiled import cached_tiled_renderer, color_feature_volume
+from ..utils.profiling import trace_context
 from ..utils.schedulers import make_lr_schedule
 from ..utils.vis import panel, visualize_depth
 from .common import Prefetcher, RayBatchIterator, unpreprocess_images
@@ -248,7 +249,8 @@ class FinetuneSystem:
         """Render a (N, 8) ray batch over the trainable volume; dict rgb,
         depth, acc, ... (render.renderer.render_rays: K8 with gradients
         off)."""
-        pts, rays_d, z_vals, pts_ndc = self._samples(rays, generator)
+        with trace_context("render.sample"):
+            pts, rays_d, z_vals, pts_ndc = self._samples(rays, generator)
         w2cs = self.pose_source["w2cs"]
         return render_rays(self.mlp, self.volume, pts, pts_ndc, z_vals,
                            rays_d, w2cs[0], w2cs,
@@ -393,8 +395,9 @@ class FinetuneSystem:
         and importance depths drawn after them, all from one generator
         seeded 0 (the JAX trainer renders with PRNGKey(0) and its
         fold_in(1))."""
-        rays = torch.as_tensor(np.asarray(rays, np.float32),
-                               device=self.device)
+        with trace_context("upload"):
+            rays = torch.as_tensor(np.asarray(rays, np.float32),
+                                   device=self.device)
         if self.args.render_mode == "tiled":
             # rays render one by one: a (1, N) "image" is the whole buffer
             return self._tiled_renderer(chunk)(rays, 1, rays.shape[0])

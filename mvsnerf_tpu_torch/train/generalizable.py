@@ -47,6 +47,7 @@ from ..parallel import allreduce_mean, axis_group, is_main_rank, \
     rank_seed, replicate
 from ..render.renderer import gen_dir_feature, gen_pts_feats, \
     network_input, render_image_chunked, render_rays
+from ..utils.profiling import trace_context
 from ..utils.schedulers import make_lr_schedule
 from .common import unpreprocess_images
 from .finetune import reference_modules, seeded_modules
@@ -126,9 +127,10 @@ class GeneralizableSystem:
 
     def batch(self, sample):
         """A dataset sample's arrays as float32 tensors on the device."""
-        return {k: torch.from_numpy(np.asarray(sample[k], np.float32)).to(
-                    self.device, non_blocking=True)
-                for k in BATCH_KEYS if k in sample}
+        with trace_context("upload"):
+            return {k: torch.from_numpy(np.asarray(sample[k], np.float32))
+                    .to(self.device, non_blocking=True)
+                    for k in BATCH_KEYS if k in sample}
 
     def draw(self, batch, generator=None):
         """The step's random draws of this rank: `rays_per_rank` integer
@@ -230,17 +232,20 @@ class GeneralizableSystem:
         mesh, averaged over the ranks with the loss and its parts, in one
         all-reduce), Adam and a schedule tick. Returns (loss, aux) detached
         on the device (reading them synchronises)."""
-        loss, aux = self.loss(batch, xs, ys, u, twins)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh is not None:
-            params = [p for g in self.optimizer.param_groups
-                      for p in g["params"]]
-            (loss, *parts), _ = allreduce_mean(params, self.mesh, self.axes,
-                                               [loss, *aux.values()])
-            aux = dict(zip(aux, parts))
-        self.optimizer.step()
-        self.scheduler.step()
+        with trace_context("train.forward"):
+            loss, aux = self.loss(batch, xs, ys, u, twins)
+        with trace_context("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.mesh is not None:
+                params = [p for g in self.optimizer.param_groups
+                          for p in g["params"]]
+                (loss, *parts), _ = allreduce_mean(
+                    params, self.mesh, self.axes, [loss, *aux.values()])
+                aux = dict(zip(aux, parts))
+        with trace_context("train.optimizer"):
+            self.optimizer.step()
+            self.scheduler.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def on_main_rank(self, fn, *args):
@@ -278,9 +283,12 @@ class GeneralizableSystem:
         done = False
         for _ in range(num_epochs):
             for i in rng.permutation(n):
-                batch = self.batch(dataset[int(i)])
-                gen.manual_seed(self.step_seed(seed, self.global_step))
-                loss, aux = self._step(batch, *self.draw(batch, gen))
+                with trace_context("train.step"):
+                    batch = self.batch(dataset[int(i)])
+                    gen.manual_seed(self.step_seed(seed, self.global_step))
+                    with trace_context("train.draw"):
+                        draws = self.draw(batch, gen)
+                    loss, aux = self._step(batch, *draws)
                 losses.append(loss)
                 self.global_step += 1
                 if self.global_step % log_every == 0:

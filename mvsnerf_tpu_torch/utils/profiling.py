@@ -1,6 +1,6 @@
-"""Tracing and throughput (counterpart of mvsnerf_tpu/utils/profiling.py):
-named regions and whole traces on `torch.profiler`, anomaly detection for
-NaN hunts, and a units-per-second meter.
+"""Tracing (counterpart of mvsnerf_tpu/utils/profiling.py): the program's
+named spans and whole traces on `torch.profiler`, and anomaly detection for
+NaN hunts.
 
 `enable_compilation_cache` has no counterpart: it points XLA's persistent
 compilation cache at a directory, and the port compiles no XLA programs
@@ -16,12 +16,26 @@ import time
 import torch
 
 
-@contextlib.contextmanager
+# a span when no profiler records: nothing entered
+_OFF = contextlib.nullcontext()
+
+
 def trace_context(name: str):
-    """Name a region in `torch.profiler`'s trace (JAX: a
-    `jax.profiler.TraceAnnotation`)."""
-    with torch.profiler.record_function(name):
-        yield
+    """The program's span `mvsnerf.<name>`: a range in `torch.profiler`'s
+    trace on the profiler's clock, entered only while a profiler records
+    (JAX: a `jax.profiler.TraceAnnotation`); otherwise it costs one check.
+    Nesting on the host gives each span its parent. A span reads no tensor
+    and never synchronises.
+
+    The range is a `RecordFunctionFast`, not a user annotation
+    (`record_function`): the profiler mirrors a kernel onto the device
+    timeline only under the innermost user annotation, so a span of that
+    kind would take the device range away from any annotation a caller
+    wraps around the program. A span's device work is found through the
+    launches made inside it (the trace's correlation ids)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast("mvsnerf." + name)
 
 
 @contextlib.contextmanager
@@ -49,36 +63,3 @@ def enable_nan_debugging(enable: bool = True):
     the reference's global `set_detect_anomaly(True)` (models.py:2), here
     opt-in (JAX: `jax_debug_nans`)."""
     torch.autograd.set_detect_anomaly(enable)
-
-
-class ThroughputMeter:
-    """Units (rays, samples) per second on the host's clock, the first
-    `skip` steps left out as warm-up (JAX's semantics). With a CUDA
-    `device` the clock is read after synchronising it, so that queued
-    kernels count."""
-
-    def __init__(self, skip: int = 2, device=None):
-        self.skip = skip
-        self.device = None if device is None else torch.device(device)
-        self._n = 0
-        self._units = 0.0
-        self._t0 = None
-
-    def _now(self) -> float:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def step(self, units: float):
-        self._n += 1
-        if self._n == self.skip:
-            self._t0 = self._now()
-            self._units = 0.0
-        elif self._n > self.skip:
-            self._units += units
-
-    @property
-    def rate(self) -> float:
-        if self._t0 is None or self._units == 0:
-            return 0.0
-        return self._units / (self._now() - self._t0)

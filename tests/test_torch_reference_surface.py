@@ -248,23 +248,3 @@ def test_enable_nan_debugging_toggles_anomaly_mode():
     finally:
         enable_nan_debugging(False)
     assert not torch.is_anomaly_enabled()
-
-
-@pytest.mark.parametrize("skip", [0, 1, 2, 3])
-def test_throughput_meter_keeps_jaxs_semantics(monkeypatch, skip):
-    """On the same clock readings, the same rates: the first `skip` steps
-    are warm-up (exact)."""
-    from mvsnerf_tpu.utils import profiling as jp
-    from mvsnerf_tpu_torch.utils import profiling as tp
-    rates = []
-    for mod in (jp, tp):
-        clock = iter(np.arange(100.0) * 0.5)
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
-        meter = mod.ThroughputMeter(skip=skip)
-        got = [meter.rate]
-        for units in (10, 20, 40, 80, 160):
-            meter.step(units)
-            got.append(meter.rate)
-        rates.append(got)
-    assert rates[0] == rates[1]
-    assert tp.ThroughputMeter(device="cpu").device == torch.device("cpu")
