@@ -6,9 +6,10 @@
 Drives the port's paths at DTU scale on synthetic 640x512 scenes made
 from a seed, with seeded random weights: no-finetune inference, the
 per-scene fine-tune step and the generalizable training step, the last
-also with the U-Net on the hand-written K10 kernels (`--costreg_impl
-dband`), the colour-baked volume with the eval and video entry points,
-the render's gradient in its source images (K4's backward), the
+with the U-Net on cuDNN (`--costreg_impl plain`) and on the default route,
+which takes the hand-written K10 kernels on the card (as every other phase
+does), the colour-baked volume with the eval and video entry points, the
+render's gradient in its source images (K4's backward), the
 density volume with importance sampling and `--use_disp`, and the fusion
 trainer; then the Blender (800x800) and LLFF (960x640) datasets through
 their loaders, the fine-tune trainer, every render mode and the CLIs;
@@ -40,7 +41,8 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      3 full 640x512 requests at 128 samples, each rendered in 'chunked'
      (K8) and 'hybrid' (K6) mode; checks finiteness, hybrid vs chunked rgb
      (K6 against K8), and that every kernel ran in this phase (launch
-     counters reset just before);
+     counters reset just before), K10 4 / 3 / 3 / 0 times (s1 / s2 / up /
+     wgrad) in the build;
   5. small-input parity: the same evaluator on a 64x96 toy scene on the
      card and on the CPU (whose wrappers run the plain twins), in all
      three render modes;
@@ -65,7 +67,8 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      attached to the process and slow every later launch on the host, and
      the step is host-bound;
   7. generalizable training: `GeneralizableSystem` from a
-     reference-format checkpoint of the same weights, on bench.py's
+     reference-format checkpoint of the same weights, its U-Net on cuDNN
+     (`--costreg_impl plain`), on bench.py's
      generalizable batch (4 random 640x512 views of the rig, the last the
      target, random depths in [2, 5]), batch 1024, 128 samples, pad 24,
      128 planes, depth loss: (a) K2 (the sweep backward) against its plain
@@ -82,7 +85,8 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      (e) `torch.profiler` over 2 steps: device busy share, time by stage
      and each stage's largest kernels, and that no operation copied a
      cost-volume-sized tensor (the U-Net reads K1's output in place);
-  8. the dband route, phase 7's configuration with `--costreg_impl dband`:
+  8. the default route, phase 7's configuration with no `--costreg_impl`,
+     which must resolve `auto` to `dband` (K10) on the card:
      (a) each K10 kernel (conv3d_fwd at stride 1 and 2, conv3d_up,
      conv3d_wgrad) against its plain twin on the inputs one step gives it,
      layer by layer in each direction (forward, dgrad, wgrad), with
@@ -90,10 +94,10 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      device times of kernel and cuDNN for every call; (b) one
      step's gradients on K10 against a float64 run of the twins; (c) 12
      steps of `fit` (launch counters reset just before), timed over the
-     last 10, next to phase 7's; (d) `Evaluator(costreg_impl="dband")
-     .build_volume` against the cuDNN route's volume; (e) the profile of
-     2 steps: no library convolution in the U-Net's stages, no
-     cost-volume-sized copy;
+     last 10, next to phase 7's, with K10's launches 8 / 6 / 6 / 10 a step;
+     (d) `Evaluator(costreg_impl="auto").build_volume` against
+     `costreg_impl="plain"`'s volume; (e) the profile of 2 steps: no
+     library convolution in the U-Net's stages, no cost-volume-sized copy;
   9. the colour-baked volume and the eval and video entry points: (a) K6b
      (the baked render) and K8 (PE + MLP + compositing from gathered
      features) against their twins on one 16384-ray chunk at 128 samples
@@ -170,18 +174,19 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      frames its pair table names, blended onto white, `--white_bkgd`) and
      LLFF `fern` at 960x640 (20 images, a forward-facing
      `poses_bounds.npy`). For each: (a) the loaders (train and val splits,
-     the source views); (b) `Evaluator.build_volume` on cuDNN and on dband
-     (K10's generic stride-2 route at Blender's width 62), held to each
+     the source views); (b) `Evaluator.build_volume` on cuDNN (`plain`)
+     and on dband (K10's generic stride-2 route at Blender's width 62, its
+     pair route at LLFF's), held to each
      other as in phase 8d and timed; (c) one fine-tune step on the kernels
      against one on the twins, then 36 steps of `fit` timed over the last
      30 (ms/step, rays/s); (d) one full-resolution request in each of the
      chunked, hybrid and tiled modes after a first one, hybrid held to
      chunked as in phase 4; (e) the CLIs `train_finetune` (3 steps, then
-     the 4 val views), `evaluate --render_mode hybrid` (on dband for
-     Blender) and `render_video --render_mode tiled` (3 frames from the
-     fine-tune's snapshot), run from the temporary directory; (f) the
-     launches of K1, K4, K5, K6, K6b, K7, K8 and, for Blender, K10's
-     generic stride-2 route over (b)-(e); (g) `native.available()`, the
+     the 4 val views), `evaluate --render_mode hybrid` (K10 on the
+     default route) and `render_video --render_mode tiled` (3 frames from
+     the fine-tune's snapshot), run from the temporary directory; (f) the
+     launches of K1, K4, K5, K6, K6b, K7, K8 and K10's stride-2 route of
+     the dataset (generic for Blender, pair for LLFF) over (b)-(e); (g) `native.available()`, the
      fit's batches counted at `native.ray_gather`, and its time a batch
      beside numpy's; then `torch.profiler` over 3 steps. Then K1 at each
      dataset's volume and K10's generic stride-2 call against their twins
@@ -243,7 +248,7 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      1200x1600 depth maps) and its `scans.txt`: seconds and bytes; (b)
      `train_mvs_nerf --dataset_name dtu --with_depth_loss` for GEN_WARM +
      GEN_TIMED steps and one validation panel: ms/step over the last
-     GEN_TIMED beside phase 7's in-memory step, and the share of those
+     GEN_TIMED beside phase 8's in-memory step, and the share of those
      steps' wall spent in the `dtu` loader's `__getitem__` (4 PNGs and 4
      1200x1600 depth maps a sample); (c) `train_finetune --dataset_name
      dtu_ft` for FT_WARM + FT_TIMED steps, then its 4 val views: the
@@ -329,7 +334,7 @@ GEN_WARM, GEN_TIMED, GEN_AB = 2, 10, 3
 # order, no early stop on either side); the in-memory eval dataset's views
 # and the video's frames
 EVAL_VIEWS, VIDEO_FRAMES = 2, 3
-# phase 8, the dband route (K10) at phase 7's configuration. Forward and
+# phase 8, the default route (K10) at phase 7's configuration. Forward and
 # dgrad against the twin: x (1 + max|twin|). The weight gradient sums up to
 # 4.7M products in another order than the twin's: held to a float64 run of
 # the twin by TOL_K7_BWD's rule.
@@ -343,6 +348,8 @@ K10_LAYERS = (("conv0", "s1"), ("conv1", "s2"), ("conv2", "s1"),
 # dgrad) and stride 2 (3 forward + the 3 up layers' dgrad), conv3d_up (3
 # forward + the 3 s2 layers' dgrad), conv3d_wgrad (10)
 K10_PER_STEP = {"s1": 8, "s2": 6, "up": 6, "wgrad": 10}
+# and per volume build (the forward alone)
+K10_PER_BUILD = {"s1": 4, "s2": 3, "up": 3, "wgrad": 0}
 # launch key -> entry name and the TPU kernel it replaces (the wgrad entry
 # replaces _s1_wgrad_dband :597 and _s2_wgrad_dband :707)
 K10_ENTRIES = {
@@ -1464,7 +1471,7 @@ def generalizable_phase(dev, mlp, mvsnet, failures):
 
     t0 = time.perf_counter()
     sample = generalizable_sample(np.random.default_rng(SEED + 3))
-    system = generalizable_system(dev, mlp, mvsnet)
+    system = generalizable_system(dev, mlp, mvsnet, "--costreg_impl plain")
     batch = system.batch(sample)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     print(f"[7 generalizable] {GEN_VIEWS} views of {H}x{W}, batch "
@@ -1865,13 +1872,13 @@ def k10_kernel_entries(system, batch, draws, failures):
     return entries
 
 
-def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
-                cudnn_volume):
-    """Phase 8: the generalizable step and the volume build with the U-Net
-    on K10 (`--costreg_impl dband`); returns K10's entries of the kernels
-    line."""
+def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene):
+    """Phase 8: the generalizable step and the volume build on the default
+    route (`--costreg_impl auto`), which takes K10 on the card; returns
+    K10's entries of the kernels line and the step's ms."""
     import torch
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
+    from mvsnerf_tpu_torch.models.mvsnet import costreg_route
     from mvsnerf_tpu_torch.ops import costreg_conv as k10
     from mvsnerf_tpu_torch.ops import mlp_train as k7
     from mvsnerf_tpu_torch.ops import sweep as k12
@@ -1880,13 +1887,15 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
 
     t0 = time.perf_counter()
     sample = generalizable_sample(np.random.default_rng(SEED + 3))
-    system = generalizable_system(dev, mlp, mvsnet, "--costreg_impl dband")
-    require(system.mvsnet.cost_reg_2.impl == "dband",
-            "--costreg_impl dband did not reach the U-Net")
+    system = generalizable_system(dev, mlp, mvsnet)
+    impl = system.mvsnet.cost_reg_2.impl
+    require(impl == "auto" and costreg_route(impl, dev) == "dband",
+            f"the default route is {impl!r}, resolving to "
+            f"{costreg_route(impl, dev)!r} on {dev}, not auto -> dband")
     batch = system.batch(sample)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    print(f"[8 dband] phase 7's configuration with --costreg_impl dband; "
-          f"set up in {time.perf_counter() - t0:.1f} s")
+    print(f"[8 dband] phase 7's configuration on the default route (auto "
+          f"-> dband); set up in {time.perf_counter() - t0:.1f} s")
 
     # ---- (a) each kernel against its twin on one step's inputs
     draws = system.draw(batch, gen)
@@ -1941,27 +1950,31 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
                 for name, (fn, attr) in counters.items()}
     k10_launches = dict(k10.launches)
     step_ms = (clock.marks[n_steps] - clock.marks[GEN_WARM]) * 1e3 / GEN_TIMED
-    print(f"[8 fit] {len(losses)} steps on dband, loss {losses[0]:.5f} -> "
+    print(f"[8 fit] {len(losses)} steps on auto (K10), loss "
+          f"{losses[0]:.5f} -> "
           f"{losses[-1]:.5f}; steps {GEN_WARM + 1}-{n_steps}: "
           f"generalizable_train_step_ms {step_ms:.2f} (cuDNN U-Net, phase "
           f"7: {cudnn_step_ms:.2f}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K10 "
           f"launches {k10_launches}; others {launches}")
     check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
-          "fit on dband returned a non-finite loss", failures)
+          "fit on the default route returned a non-finite loss", failures)
     check(k10_launches == {key: n * n_steps
                            for key, n in K10_PER_STEP.items()},
           f"K10 launched {k10_launches} times in {n_steps} steps, not "
           f"{n_steps} x {K10_PER_STEP}", failures)
     for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the dband path", failures)
+        check(n > 0, f"{name} never launched on the default route", failures)
     for e, key in zip(entries, K10_ENTRIES):
         e["launches"] = k10_launches[key]
 
-    # ---- (d) the volume build on dband against the cuDNN route's
+    # ---- (d) the volume build on the default route against cuDNN's
+    cudnn_volume = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD,
+                             n_planes=N_PLANES, chunk=CHUNK, device=dev,
+                             costreg_impl="plain").build_volume(*scene)[0]
     ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD,
                    n_planes=N_PLANES, chunk=CHUNK, device=dev,
-                   costreg_impl="dband")
+                   costreg_impl="auto")
     ev.build_volume(*scene)
     for key in k10.launches:
         k10.launches[key] = 0
@@ -1971,14 +1984,14 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     rel = max_err(vol, cudnn_volume) / float(cudnn_volume.abs().max())
-    print(f"[8 volume] Evaluator(costreg_impl='dband').build_volume: "
+    print(f"[8 volume] Evaluator(costreg_impl='auto').build_volume: "
           f"{build_ms:.1f} ms, volume {tuple(vol.shape)}, max abs diff from "
           f"the cuDNN route's / its max {rel:.2e} (tol 1e-4); K10 launches "
           f"{k10.launches}")
     check(rel <= 1e-4, "the dband volume disagrees with the cuDNN route's",
           failures)
-    check(k10.launches == {"s1": 4, "s2": 3, "up": 3, "wgrad": 0},
-          f"the dband volume build launched K10 {k10.launches} times",
+    check(k10.launches == K10_PER_BUILD,
+          f"the default volume build launched K10 {k10.launches} times",
           failures)
     del ev, vol
 
@@ -2016,7 +2029,7 @@ def dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, scene,
         check(not gemm, "a cuBLAS GEMM ran in the dband U-Net", failures)
         check(all(k10_us.values()), "the profile shows no K10 kernel in "
                                     "the U-Net's stages", failures)
-    return entries
+    return entries, step_ms
 
 
 class EvalScene:
@@ -2991,7 +3004,7 @@ def fusion_phase(dev, mlp, mvsnet, failures):
 
     t0 = time.perf_counter()
     scene = FusionScene(np.random.default_rng(SEED + 12))
-    system = fusion_system(dev, mlp, mvsnet, scene)
+    system = fusion_system(dev, mlp, mvsnet, scene, "--costreg_impl plain")
     vol = system.volume
     require(tuple(vol.shape) == (*fusion.FusionFinetuneSystem.VOLUME_DIM,
                                  20) and
@@ -3417,7 +3430,7 @@ def dataset_run(dev, mlp, mvsnet, name, datadir, ckpt, white, tmp,
 
     # ---- (b) the volume build on cuDNN and on dband
     ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD, chunk=CHUNK,
-                   white_bkgd=white, device=dev)
+                   white_bkgd=white, device=dev, costreg_impl="plain")
     ev_d = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD, chunk=CHUNK,
                      white_bkgd=white, device=dev, costreg_impl="dband")
     builds = {}
@@ -3550,16 +3563,13 @@ def dataset_run(dev, mlp, mvsnet, name, datadir, ckpt, white, tmp,
             f"smoke_{name}"] + (["--white_bkgd"] if white else [])
     snapshot = os.path.join("runs_fine_tuning", f"smoke_{name}", "ckpts",
                             f"ckpt_{CLI_STEPS:09d}.pt")
-    dband = ["--costreg_impl", "dband"] if name == "blender" else []
+    s2_route = "K10 s2 generic" if name == "blender" else "K10 s2 pair"
     clis = (("train_finetune", ("K1", "K4", "K5 fwd", "K5 bwd", "K7 fwd",
                                 "K7 bwd", "K8"),
              lambda: train_finetune.main(base + ["--max_steps",
                                                  str(CLI_STEPS)])),
-            ("evaluate --render_mode hybrid" + " --costreg_impl dband" *
-             bool(dband), ("K1", "K4", "K6") + ("K10 s2 generic",) *
-             bool(dband),
-             lambda: evaluate.main(base + ["--render_mode", "hybrid"] +
-                                   dband)),
+            ("evaluate --render_mode hybrid", ("K1", "K4", "K6", s2_route),
+             lambda: evaluate.main(base + ["--render_mode", "hybrid"])),
             ("render_video --render_mode tiled", ("K1", "K6b"),
              lambda: render_video.main(base + ["--render_mode", "tiled",
                                                "--ckpt", snapshot],
@@ -3591,7 +3601,7 @@ def dataset_run(dev, mlp, mvsnet, name, datadir, ckpt, white, tmp,
     print(f"[{tag} launches] over (b)-(e): "
           f"{ {k: n for k, n in total.items()} }")
     needed = ["K1", "K4", "K5 fwd", "K5 bwd", "K6", "K6b", "K7 fwd",
-              "K7 bwd", "K8"] + ["K10 s2 generic"] * (name == "blender")
+              "K7 bwd", "K8", s2_route]
     check(all(total[k] > 0 for k in needed),
           f"[{tag}] a kernel of the path never launched", failures)
     print(f"[{tag} summary] volume build {builds['cuDNN']:.1f} ms on cuDNN, "
@@ -3705,12 +3715,12 @@ def dataset_phase(dev, mlp, mvsnet, failures):
         kernels += dataset_kernel_entries(name, rec, failures)
         h, w = rec["hw"]
         rays = torch.from_numpy(rec["rays"]).to(dev)
-        for impl in ("auto", "dband"):
+        for impl in ("plain", "dband"):
             ev = Evaluator(mvsnet, mlp, n_samples=N_SAMPLES, pad=PAD,
                            chunk=CHUNK, white_bkgd=rec["white"], device=dev,
                            costreg_impl=impl)
             call_profile(f"13 {name}", f"build_volume, U-Net on "
-                         f"{'cuDNN' if impl == 'auto' else impl}",
+                         f"{'cuDNN' if impl == 'plain' else impl}",
                          lambda: ev.build_volume(*rec["src"]))
         for mode in ("chunked", "tiled"):
             call_profile(f"13 {name}", f"one {mode} request",
@@ -3821,7 +3831,8 @@ def dp_single_rank(dev, mlp, mvsnet, sample, failures, gen_step_ms):
                 torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
             # Adam's first update is lr * g / (|g| + 1e-8): where |g| is
             # near 1e-8, run-to-run float32 differences of g (K2's and K5's
-            # atomics, cuDNN's backward) move the update by up to lr; the
+            # atomics, FeatureNet's cuDNN backward) move the update by up to
+            # lr; the
             # rest agree to STEP_TOL x lr (phase 6's rule)
             lr = plain.args.lrate
             firm = b["g"].abs() > 1e-7
@@ -3860,7 +3871,7 @@ def dp_single_rank(dev, mlp, mvsnet, sample, failures, gen_step_ms):
             print(f"[14 dp1] ms/step over {DP_TIMED} steps in turns: " +
                   "; ".join(f"{n} {[round(t, 2) for t in ts]}"
                             for n, ts in times.items()) +
-                  f" (phase 7's fit: {gen_step_ms:.2f})")
+                  f" (phase 8's fit: {gen_step_ms:.2f})")
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 dp._step(batch, *draws)
                 torch.cuda.synchronize()
@@ -4888,7 +4899,7 @@ def dtu_phase(dev, mlp, mvsnet, failures, kernels, ft_step_ms, gen_step_ms):
             if os.path.exists(panel) else None
         print(f"[16b fit] {len(losses)} steps, loss {losses[0]:.5f} -> "
               f"{losses[-1]:.5f}; steps {GEN_WARM + 1}-{n_gen}: "
-              f"{gen_ms:.2f} ms/step from files (phase 7 in memory "
+              f"{gen_ms:.2f} ms/step from files (phase 8 in memory "
               f"{gen_step_ms:.2f}); the dtu loader's __getitem__ "
               f"{sum(window) * 1e3 / max(len(window), 1):.2f} ms a sample "
               f"({len(window)} in the window; its 4 PNG decodes "
@@ -5045,6 +5056,7 @@ def main():
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
     from mvsnerf_tpu_torch.models.mvsnet import MVSNet
     from mvsnerf_tpu_torch.models.nerf_mlp import MVSNeRF
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
     from mvsnerf_tpu_torch.ops.color_warp import color_warp, \
         color_warp_plain
     from mvsnerf_tpu_torch.ops.geometry import get_ndc_coordinate
@@ -5186,6 +5198,8 @@ def main():
                 "K8 render_v0_feats": render_v0_feats}
     for fn in wrappers.values():
         fn.launches = 0
+    for key in k10.launches:
+        k10.launches[key] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     volume, *_ = ev.build_volume(imgs_norm, projs, NEAR_FAR, pose_src)
@@ -5216,7 +5230,8 @@ def main():
                                    outs["chunked"]["rgb"]))
     launches = {name: fn.launches for name, fn in wrappers.items()}
     print(f"[4 slice] volume {tuple(volume.shape)} built in "
-          f"{volume_ms:.1f} ms")
+          f"{volume_ms:.1f} ms on the default route, K10 launches "
+          f"{k10.launches}")
     for mode, ts in times.items():
         ms = sum(ts) / len(ts)
         print(f"[4 slice] {mode}: {len(ts)} requests of {H}x{W} rays, "
@@ -5228,6 +5243,8 @@ def main():
           failures)
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path", failures)
+    check(k10.launches == K10_PER_BUILD, f"the volume build launched K10 "
+          f"{k10.launches} times, not {K10_PER_BUILD}", failures)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     note_k4_bwd(4)
@@ -5272,8 +5289,10 @@ def main():
 
     # ---- 8. the dband route: the U-Net on K10
     torch.cuda.empty_cache()
-    kernels += dband_phase(dev, mlp, mvsnet, failures, cudnn_step_ms,
-                           (imgs_norm, projs, NEAR_FAR, pose_src), volume)
+    entries, gen_step_ms = dband_phase(dev, mlp, mvsnet, failures,
+                                       cudnn_step_ms,
+                                       (imgs_norm, projs, NEAR_FAR, pose_src))
+    kernels += entries
     note_k4_bwd(8)
 
     # ---- 9. the colour-baked volume, the eval and video entry points
@@ -5304,7 +5323,7 @@ def main():
     # ---- 14. data parallelism (NCCL at one rank, two gloo ranks on the
     # card) and the v1, v2 and fusion MLPs
     torch.cuda.empty_cache()
-    parallel_phase(dev, mlp, mvsnet, failures, cudnn_step_ms, ft_step_ms)
+    parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms)
 
     # ---- 15. resuming from JAX's .msgpack snapshots, run_batch, the
     # generalizable validation panels, the reference helpers
@@ -5314,7 +5333,7 @@ def main():
     # ---- 16. the DTU path from files at 640x512: the scene writer, every
     # DTU CLI, LPIPS on the card and the post-hoc metric tool
     torch.cuda.empty_cache()
-    dtu_phase(dev, mlp, mvsnet, failures, kernels, ft_step_ms, cudnn_step_ms)
+    dtu_phase(dev, mlp, mvsnet, failures, kernels, ft_step_ms, gen_step_ms)
     # ---- K4's forward on the device, on phase 3's inputs, taken last:
     # torch.profiler can leave CUPTI attached to the process and slow
     # every later launch on the host, and with it the host-bound fine-tune

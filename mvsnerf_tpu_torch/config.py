@@ -5,10 +5,11 @@ mvsnerf_tpu/config.py, on plain argparse.
 command line. The JAX package's TPU-only implementation switches are
 parsed, so the same command lines work, and do nothing here: the port has
 one implementation of each path. Setting one prints a line saying so.
-`--costreg_impl` is the exception: `dband` runs the CostRegNet U-Net's
-convolutions on the hand-written K10 kernels (ops/costreg_conv.py), and
-the other values on cuDNN (`packed`, a TPU layout, prints a line saying
-so).
+`--costreg_impl` is the exception: `auto`, the default, runs the
+CostRegNet U-Net's convolutions on the hand-written K10 kernels
+(ops/costreg_conv.py) on a CUDA card and on cuDNN elsewhere,
+`dband` always on K10, `plain` always on cuDNN (`packed`, a TPU layout,
+runs on cuDNN and prints a line saying so).
 `--device` is the port's own: the CLIs run on the CUDA card unless it says
 `cpu`, and raise when there is no card.
 """
@@ -60,13 +61,14 @@ def config_parser(cmd=None):
     add("--lpips_weights", type=str, default="lpips_vgg.npz")
 
     # TPU-only implementation switches: parsed, ignored (but for
-    # --costreg_impl dband)
+    # --costreg_impl)
     add("--warp_mode", type=str, default="auto",
         choices=["auto", "pallas", "packed", "banded", "gather"])
     add("--costreg_impl", type=str, default="auto",
         choices=["auto", "packed", "plain", "dband"],
-        help="CostRegNet convolutions: 'dband' = the hand-written K10 "
-             "kernels (ops/costreg_conv.py); 'auto', 'plain' and 'packed' "
+        help="CostRegNet convolutions: 'auto' = the hand-written K10 "
+             "kernels (ops/costreg_conv.py) on a CUDA card, "
+             "cuDNN elsewhere; 'dband' = always K10; 'plain' and 'packed' "
              "= cuDNN ('packed' is a TPU layout of the JAX package)")
     add("--featurenet_impl", type=str, default="auto",
         choices=["auto", "packed", "plain"])

@@ -53,7 +53,8 @@ class Evaluator:
         white_bkgd: composite onto white (Blender scenes).
         chunk: rays per render chunk (every mode).
         costreg_impl: the route of the volume build's U-Net (a
-            `--costreg_impl` value: "dband" for the K10 kernels, the others
+            `--costreg_impl` value: "auto" for the K10 kernels on a card
+            and cuDNN elsewhere, "dband" for K10, "plain" for
             cuDNN); None keeps the one `mvsnet` was built with.
         device: where the scene's tensors live: CUDA unless the caller
             names the CPU; with no card it raises.

@@ -211,9 +211,11 @@ def modules_from_state_dicts(fn_sd, mvs_sd, device=None,
                              net_type: str = "v0", D: int = 6,
                              W: int = 128):
     """Build the MLP of `net_type` at depth D and width W, and MVSNet (its
-    U-Net on `costreg_impl`'s route), on `device` and load both state dicts
-    strictly. The type is the caller's, never read from the keys: v0 and
-    v2 have the same keys and shapes (JAX nerf_mlp.py:184-200)."""
+    U-Net on `costreg_impl`'s route: "auto" takes K10 on a card and cuDNN
+    elsewhere, "dband" K10, "plain" cuDNN), on `device` and load
+    both state dicts strictly. The type is the caller's, never read from
+    the keys: v0 and v2 have the same keys and shapes (JAX
+    nerf_mlp.py:184-200)."""
     mlp = MVSNeRF(net_type, D, W, device=device)
     mlp.load_state_dict(fn_sd, strict=True)
     mvsnet = MVSNet(device=device, costreg_impl=costreg_impl)
@@ -240,9 +242,9 @@ def load_reference_checkpoint(path: str, device=None,
     """torch.load a reference-format checkpoint -> (MVSNeRF, MVSNet,
     volume): both modules loaded with strict=True, the MLP of the caller's
     `net_type` at depth D and width W (`--net_type`, `--netdepth`,
-    `--netwidth`), the MVSNet's U-Net on `costreg_impl`'s route; the
-    fine-tuned (D, h, w, C) volume when the checkpoint holds one, else
-    None."""
+    `--netwidth`), the MVSNet's U-Net on `costreg_impl`'s route (as in
+    `modules_from_state_dicts`); the fine-tuned (D, h, w, C) volume when
+    the checkpoint holds one, else None."""
     ck = torch.load(path, map_location=device, weights_only=True)
     mlp, mvsnet = modules_from_state_dicts(ck["network_fn_state_dict"],
                                            ck["network_mvs_state_dict"],

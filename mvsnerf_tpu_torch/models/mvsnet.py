@@ -4,10 +4,12 @@ and the MVSNet plane-sweep pipeline.
 Counterpart of mvsnerf_tpu/models/mvsnet.py with its dense layout. The
 convolutions run on cuDNN (float32, TF32 off; see the package docstring),
 except the U-Net's on the `dband` route, which run on the hand-written K10
-kernels of ops/costreg_conv.py (`--costreg_impl dband`, the counterpart of
-JAX's `cost_reg_dband_apply`). The 3-D U-Net runs in NCDHW, the layout the
-sweep kernel writes. The TPU-only packed variants (featurenet_packed.py,
-costreg_packed.py) have no counterpart here: `packed` runs on cuDNN.
+kernels of ops/costreg_conv.py (the counterpart of JAX's
+`cost_reg_dband_apply`). `--costreg_impl auto`, the default, takes that
+route on a CUDA card and cuDNN elsewhere; `plain` forces cuDNN, `dband`
+K10. The 3-D U-Net runs in NCDHW, the layout the sweep kernel writes. The
+TPU-only packed variants (featurenet_packed.py, costreg_packed.py) have no
+counterpart here: `packed` runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -22,9 +24,22 @@ from ..utils.profiling import trace_context
 from .layers import ABN, ConvBnReLU, ConvBnReLU3D
 
 N_DEPTH_PLANES = 128  # hardcoded in the reference (models.py:914)
-# --costreg_impl values: `dband` runs the U-Net's convolutions on K10, the
-# others on cuDNN
+# --costreg_impl values: `dband` runs the U-Net's convolutions on K10,
+# `plain` and `packed` on cuDNN, `auto` on the one `costreg_route` picks
 COSTREG_IMPLS = ("auto", "plain", "packed", "dband")
+
+
+def costreg_route(impl, device):
+    """The route `impl` takes for a U-Net input on `device`: "auto" is
+    "dband" on a CUDA card and "plain" elsewhere; the other values are
+    their own route. On the card K10 takes what the sweep writes, a
+    float32 (1, C, D, H, W) cost volume, and raises on anything else: a
+    caller who wants cuDNN there names "plain"."""
+    if impl not in COSTREG_IMPLS:
+        raise ValueError(f"unknown costreg impl {impl!r}")
+    if impl != "auto":
+        return impl
+    return "dband" if torch.device(device).type == "cuda" else "plain"
 
 
 class FeatureNet(nn.Module):
@@ -58,9 +73,10 @@ class CostRegNet(nn.Module):
 
     `impl` is a `--costreg_impl` value: "dband" runs the ten convolutions
     on K10 (ops/costreg_conv.py; its kernels take float32 only, like JAX's
-    route, and its CPU twins any float type), the others on cuDNN. Both
-    routes use the same parameters and modules, so the state dict is the
-    same."""
+    route, and its CPU twins any float type), "plain" and "packed" on
+    cuDNN, and "auto" on K10 for an input on a CUDA card and on cuDNN
+    for any other (`costreg_route`, once a call). Both routes use the
+    same parameters and modules, so the state dict is the same."""
 
     def __init__(self, in_channels: int = 41, device=None,
                  impl: str = "auto"):
@@ -90,14 +106,11 @@ class CostRegNet(nn.Module):
     def forward(self, x, impl: str | None = None):
         """(1, Cin, D, H, W) -> (1, 8, D, H, W) on the module's route, or
         on `impl` when given."""
-        impl = impl or self.impl
-        if impl not in COSTREG_IMPLS:
-            raise ValueError(f"unknown costreg impl {impl!r}")
+        dband = costreg_route(impl or self.impl, x.device) == "dband"
         d0, h0, w0 = x.shape[2:]
         pads = [(-s) % 8 for s in (d0, h0, w0)]
         if any(pads):
             x = F.pad(x, (0, pads[2], 0, pads[1], 0, pads[0]))
-        dband = impl == "dband"
 
         def enc(block, y, conv):
             return block.bn(conv(y, block.conv.weight)) if dband else block(y)

@@ -3,15 +3,16 @@ mvsnerf_tpu/train/fusion.py, reference
 train_mvs_nerf_fusion_finetuning_pl.py).
 
 For each training view, an encoding volume is built from its 3 nearest
-training views (MVSNet: K1, and K10 with `--costreg_impl dband`), all its
-rays are rendered at 1/4 resolution with 128 samples (K4 colours, the
-volume's `grid_sample` fetch, K8 for PE, MLP and compositing, which also
-hands back each sample's alpha), and each sample's weighted (features,
-alpha) and its trilinear weight are splatted into a canonical (128, 128,
-128) grid (K5's splat, `splat_trilinear`). The grid, normalised by the
-splatted weight, becomes the trainable 20-channel volume: the step fetches
-it through K5 in the [0, 1] coordinates of the scene's box and runs the
-MLP through K7, with no colour warp; Adam holds {mlp, volume} only.
+training views (MVSNet: K1, and K10 on a card unless `--costreg_impl
+plain`), all its rays are rendered at 1/4 resolution with 128 samples (K4
+colours, the volume's `grid_sample` fetch, K8 for PE, MLP and compositing,
+which also hands back each sample's alpha), and each sample's weighted
+(features, alpha) and its trilinear weight are splatted into a canonical
+(128, 128, 128) grid (K5's splat, `splat_trilinear`). The grid,
+normalised by the splatted weight, becomes the trainable 20-channel
+volume: the step fetches it through K5 in the [0, 1] coordinates of the
+scene's box and runs the MLP through K7, with no colour warp; Adam holds
+{mlp, volume} only.
 
 Kept from the JAX package, on purpose (its fusion.py:7-20,
 docs/parity.md:31-38): the standard trilinear splat weights on aligned

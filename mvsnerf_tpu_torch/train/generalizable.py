@@ -2,8 +2,8 @@
 mvsnerf_tpu/train/generalizable.py, reference train_mvs_nerf_pl.py).
 
 Each step: MVSNet builds the encoding volume from the 3 source views
-(FeatureNet, the K1 sweep, the CostRegNet U-Net: cuDNN, or the K10 kernels
-with `--costreg_impl dband`), random rays are drawn
+(FeatureNet, the K1 sweep, the CostRegNet U-Net: the K10 kernels on a card,
+cuDNN with `--costreg_impl plain`), random rays are drawn
 in the target view (the last view), rendered on the training route (K4
 colours, K5 volume fetch, K7 MLP), and supervised with the RGB MSE plus,
 with `--with_depth_loss`, half a SmoothL1 depth loss. The backward runs

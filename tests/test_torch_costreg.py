@@ -20,6 +20,12 @@ the same forward and backward decomposition the kernels run on a card.
   file's 1e-4 x max|g|.
 - dband and auto agree on the CPU; the flag's plumbing; the kernel
   wrappers refuse what they cannot take.
+- `costreg_route`: `auto` resolves to K10 for an input on a card, float64
+  and batch 2 included, whose K10 wrappers refuse those two, and to cuDNN
+  for a CPU tensor (from the device alone, no card needed); `plain`,
+  `dband` and `packed` keep their route; the U-Net's forward takes the
+  route it gives, once a call. (A card step under `auto` is counted in
+  tests/test_torch_costreg_tc.py, which runs on the card.)
 """
 
 import numpy as np
@@ -317,3 +323,75 @@ def test_kernel_route_refuses_what_it_cannot_take(which):
             k10.conv3d_s1(x.to("meta"), torch.zeros(2, 4, 3, 3, 3,
                                                     device="meta"))
     assert _build._lib is None
+
+
+CARD_INPUT = ("cuda", torch.float32, (1, 41, 128, 176, 208))
+# case -> (the input's device, dtype and shape), the route, and what K10's
+# forward wrapper says of the input on a card (here on "meta")
+AUTO_CASES = {"cuda-f32-b1": (CARD_INPUT, "dband", "not a CUDA device"),
+              "cpu": (("cpu", *CARD_INPUT[1:]), "plain", None),
+              "float64": (("cuda", torch.float64, CARD_INPUT[2]), "dband",
+                          "must be contiguous float32"),
+              "batch2": (("cuda", torch.float32, (2, *CARD_INPUT[2][1:])),
+                         "dband", r"needs x \(1, C, D, H, W\)")}
+
+
+@pytest.mark.parametrize("case", list(AUTO_CASES))
+def test_auto_route_resolves_from_the_input(case):
+    """`auto` takes K10 for an input on a card and cuDNN elsewhere, from
+    the device alone; on a card K10 refuses a float64 or batch-2 input
+    instead of handing it to cuDNN, and takes the cost volume up to the
+    device check. A description of the input is enough, no card."""
+    from mvsnerf_tpu_torch import _build
+    from mvsnerf_tpu_torch.models.mvsnet import costreg_route
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    (device, dtype, shape), want, refusal = AUTO_CASES[case]
+    assert costreg_route("auto", device) == want
+    assert costreg_route("auto", torch.device(device)) == want
+    if want == "dband":
+        x = torch.empty(shape, dtype=dtype, device="meta")
+        w = torch.empty(8, shape[1], 3, 3, 3, device="meta")
+        with pytest.raises(ValueError, match=refusal):
+            k10.conv3d_fwd_kernel(x, w, 1)
+        assert _build._lib is None
+
+
+@pytest.mark.parametrize("impl", ["plain", "dband", "packed"])
+def test_named_routes_override_auto(impl):
+    """`plain` keeps cuDNN on a card, `dband` keeps K10 off one, `packed`
+    stays itself; unknown values raise."""
+    from mvsnerf_tpu_torch.models.mvsnet import costreg_route
+    for (device, _, _), _, _ in AUTO_CASES.values():
+        assert costreg_route(impl, device) == impl
+    with pytest.raises(ValueError):
+        costreg_route("banded", CARD_INPUT[0])
+
+
+@pytest.mark.parametrize("route", ["plain", "dband"])
+def test_cost_reg_net_takes_the_route_it_resolves(route, monkeypatch):
+    """The forward asks `costreg_route` once, with its input's device, and
+    runs K10's operations (here their CPU twins) exactly when it answers
+    "dband"."""
+    from mvsnerf_tpu_torch.models import mvsnet as mv
+    from mvsnerf_tpu_torch.ops import costreg_conv as k10
+    asked, ops = [], []
+
+    def resolved(*args):
+        asked.append(args)
+        return route
+
+    def counted(name):
+        fn = getattr(k10, name)
+        monkeypatch.setattr(k10, name, lambda *a: ops.append(name) or fn(*a))
+
+    monkeypatch.setattr(mv, "costreg_route", resolved)
+    for name in ("conv3d_fwd", "conv3d_up_op"):
+        counted(name)
+    torch.manual_seed(0)
+    net = mv.CostRegNet(4)
+    x = torch.randn(1, 4, 8, 16, 16)
+    y = net(x)
+    assert y.shape == (1, 8, 8, 16, 16)
+    assert asked == [("auto", x.device)]
+    assert sorted(ops) == ([] if route == "plain" else
+                           ["conv3d_fwd"] * 7 + ["conv3d_up_op"] * 3)

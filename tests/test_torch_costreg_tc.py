@@ -21,7 +21,9 @@ machine does not have, hence --noconftest):
 every stride-1 and weight-gradient call of the dband U-Net at its DTU
 shape (conv0 at the full (128, 176, 208) grid) against the twin and
 float64, the kernel's packing against the twin's, partial tiles, and
-bit-identical dW over two calls.
+bit-identical dW over two calls; and the U-Net's default route: a forward
+and backward under `--costreg_impl auto` launches K10 8 / 6 / 6 / 10
+times (s1 / s2 / up / wgrad), one under `plain` none, and the two agree.
 
 Tolerances, chip_smoke.py's: forward and dgrad TOL_K10 x (1 + max|twin|);
 wgrad by TOL_K7_BWD's rule, |kernel - twin| <= 5 x max(|twin - float64|,
@@ -468,3 +470,37 @@ def test_wgrad_partial_tiles_on_the_card(card, A, B, gdhw, stride, xdhw):
     """Boxes cut by the grid, partial chunks and n-tiles, odd x extents at
     stride 2."""
     _check_wgrad(card, A, B, gdhw, stride, xdhw, seed=3)
+
+
+# K10 launches of one U-Net forward and backward (conv0's input needing
+# its gradient, as the cost volume does in a step)
+K10_PER_STEP = {"s1": 8, "s2": 6, "up": 6, "wgrad": 10}
+
+
+@pytest.mark.cuda
+def test_auto_takes_k10_on_the_card_and_plain_takes_cudnn(card):
+    """A U-Net step on a float32 cost volume: `auto` resolves to K10,
+    `plain` to cuDNN, both from one module and one input; outputs within
+    1e-4 and gradients within 1e-3 of their max."""
+    from mvsnerf_tpu_torch.models.mvsnet import CostRegNet
+    k10 = _k10()
+    torch.manual_seed(0)
+    net = CostRegNet(41, device=card)
+    x0 = _card_draw(card, 5, 1, 41, 16, 24, 32)
+    outs = {}
+    for impl in ("auto", "plain"):
+        net.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        before = dict(k10.launches)
+        y = net(x, impl)
+        (y ** 2 + 0.1 * y).sum().backward()
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in k10.launches.items()}
+        assert moved == (K10_PER_STEP if impl == "auto" else
+                         dict.fromkeys(K10_PER_STEP, 0)), impl
+        outs[impl] = [y.detach(), x.grad] + [p.grad for p in
+                                              net.parameters()]
+    (ya, *ga), (yp, *gp) = outs["auto"], outs["plain"]
+    assert float((ya - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+    for a, p in zip(ga, gp):
+        assert float((a - p).abs().max()) <= 1e-3 * float(p.abs().max())
