@@ -9,9 +9,12 @@ Nothing here imports the measured program at module level.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import math
 import os
+import pkgutil
 import re
+import types
 
 import numpy as np
 import torch
@@ -40,19 +43,26 @@ def seeds(seed: int, n: int) -> list:
 
 # --------------------------------------------------------------- weights ---
 
+NORM = "norm"
+
+
 def make_weights(table: dict, seed: int, device) -> dict:
     """{checkpoint entry: {key: tensor}} from one draw on the device: a
     weight or bias uniform in +-1/sqrt(fan_in) (PyTorch's default), a
     norm's scale 1 +- 0.1 and shift +- 0.1, the unread running statistics
-    at their defaults. `table` is the reference's `param_table()`."""
-    shapes = [s for entry in table.values() for _, s in entry]
+    at their defaults. `table` is the reference's `param_table()`: each
+    item `(key, shape)`, or `(key, shape, NORM)` for a norm's scale or
+    shift (a LayerNorm's, say) that the rule for the v0 networks' batch
+    norms does not recognise."""
+    shapes = [item[1] for entry in table.values() for item in entry]
     sizes = [math.prod(s) for s in shapes]
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
     out, pos, leaf = {}, 0, 0
     for entry, items in table.items():
         out[entry] = {}
-        for key, shape in items:
+        shape_of = {item[0]: item[1] for item in items}
+        for key, shape, *kind in items:
             size = sizes[leaf]
             u = flat[pos:pos + size].reshape(shape)
             pos, leaf = pos + size, leaf + 1
@@ -62,13 +72,18 @@ def make_weights(table: dict, seed: int, device) -> dict:
                 t = torch.ones(shape, device=device)
             elif key.endswith("num_batches_tracked"):
                 t = torch.zeros((), dtype=torch.long, device=device)
-            elif ".bn." in key or re.search(r"conv(7|9|11)\.1\.", key):
+            elif kind == [NORM] or ".bn." in key or re.search(
+                    r"conv(7|9|11)\.1\.", key):
                 t = 1 + 0.1 * u if key.endswith("weight") else 0.1 * u
             else:
                 fan_in = size // shape[0] if len(shape) > 1 else None
                 if fan_in is None:  # a bias: its layer's weight's fan-in
-                    w = dict(items)[key[:-len("bias")] + "weight"]
-                    fan_in = math.prod(w) // w[0]
+                    w = key[:-len("bias")] + "weight"
+                    if not key.endswith("bias") or w not in shape_of:
+                        raise ValueError(
+                            f"{key}: a 1-D tensor that is neither a bias "
+                            f"beside a weight nor marked as a norm")
+                    fan_in = math.prod(shape_of[w]) // shape_of[w][0]
                 t = u / math.sqrt(fan_in)
             out[entry][key] = t.contiguous()
     return out
@@ -114,8 +129,33 @@ class Spans:
 
 # ------------------------------------------------------ launch counters ---
 
+def program_counters() -> dict:
+    """Every launch counter the program's `ops` modules expose, by a name
+    derived from where it lives: a function's int attribute whose name
+    ends in `launches` as `<function>.<attribute>`
+    (`render_v0_feats.launches`), and a module's dict of launches by
+    kernel or route (`launches`, `*_routes`) as
+    `<module>.<dict>.<key>` (`costreg_conv.launches.s1`)."""
+    import mvsnerf_tpu_torch.ops as ops
+    out = {}
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{info.name}")
+        for name, obj in sorted(vars(mod).items()):
+            if isinstance(obj, types.FunctionType) and \
+                    obj.__module__ == mod.__name__:
+                out.update({f"{name}.{a}": v for a, v in vars(obj).items()
+                            if a.endswith("launches") and type(v) is int})
+            elif isinstance(obj, dict) and (
+                    name == "launches" or name.endswith("_routes")):
+                out.update({f"{info.name}.{name}.{k}": v
+                            for k, v in obj.items()})
+    return out
+
+
 def launch_counts() -> dict:
-    """The program's kernel launch counters, by kernel."""
+    """The program's kernel launch counters: by kernel number (`k1` to
+    `k10_*`, what the readers of this benchmark's first cells take), then
+    every counter of `program_counters` by its derived name."""
     from mvsnerf_tpu_torch.ops import (color_warp, costreg_conv, mlp_train,
                                        render_fused, sweep, volume_gather)
     out = {
@@ -132,6 +172,7 @@ def launch_counts() -> dict:
         "k8": render_fused.render_v0_feats.launches,
     }
     out.update({f"k10_{k}": v for k, v in costreg_conv.launches.items()})
+    out.update(program_counters())
     return out
 
 

@@ -1,5 +1,11 @@
 """What the drivers share: seeded weights handed to the program through a
-reference-format checkpoint, the plain reference, the program's flags."""
+reference-format checkpoint, the plain reference, the program's flags,
+the cost model of the configuration's MLP, and the faults a timed path
+can have.
+
+A driver module declares `FAULTS`, {name: plant(monkeypatch)}: each
+plants one fault in the timed path of every cell the driver runs (the
+CPU tests see `correct` come out false under each)."""
 
 from __future__ import annotations
 
@@ -24,13 +30,18 @@ class BaseDriver:
         self.ref = importlib.import_module(
             f"gpu_bench.reference.{cfg['reference']}")
         self.limits = mix["limits"]
+        # the operations and bytes of the configuration's MLP
+        self.mlp_costs = importlib.import_module(
+            f"gpu_bench.costs.{cfg.get('costs', 'mlp_v0')}")
 
     def mark(self, name: str):
         """Marks the end of a phase of set-up (`run.run_cell` sets it)."""
 
     def program_args(self, flags):
-        """The program's flags with the seeded weights as `--ckpt`; the
-        weights stay in `self.params` for the reference."""
+        """The program's flags with the seeded weights as `--ckpt`: the
+        driver's `flags`, then the configuration's `program_flags` (the
+        model it runs), then the traffic's `flags`. The weights stay in
+        `self.params` for the reference."""
         self.weights = core.make_weights(self.ref.param_table(),
                                          self.seeds[0], self.device)
         self.params = core.flat_params(self.weights)
@@ -41,6 +52,7 @@ class BaseDriver:
         if self.device.type == "cpu":
             flags = [*flags, "--device", "cpu"]
         args = core.program_args(["--ckpt", self._ckpt, *flags,
+                                  *self.cfg.get("program_flags", []),
                                   *self.mix.get("flags", [])])
         for flag, key in (("N_samples", "samples_per_ray"), ("pad", "pad")):
             if getattr(args, flag) != self.cfg[key]:
@@ -94,3 +106,16 @@ class BaseDriver:
 
     def fault_readings(self) -> dict:
         return {}
+
+
+def alter_answers(monkeypatch, module: str, cls: str, attr: str):
+    """A fault: `module.cls.attr`, which produces the answers, returns
+    each colour moved by 1e-3."""
+    cls = getattr(importlib.import_module(module), cls)
+    orig = getattr(cls, attr)
+
+    def altered(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        return dict(out, rgb=out["rgb"] + 1e-3)
+
+    monkeypatch.setattr(cls, attr, altered)

@@ -29,6 +29,41 @@ from .base import BaseDriver
 BETA1 = 0.9
 
 
+def _unchanged_state(monkeypatch):
+    """A fault: a step that computes its loss and update, then leaves the
+    parameters as they were."""
+    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
+    orig = GeneralizableSystem._step
+
+    def step(self, *a, **kw):
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        before = [p.detach().clone() for p in params]
+        out = orig(self, *a, **kw)
+        with torch.no_grad():
+            for p, b in zip(params, before):
+                p.copy_(b)
+        return out
+
+    monkeypatch.setattr(GeneralizableSystem, "_step", step)
+
+
+def _half_batch(monkeypatch):
+    """A fault: half of the batch left out, the loss the mean over the
+    rest."""
+    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
+    orig = GeneralizableSystem._step
+
+    def step(self, *a, **kw):
+        batch, xs, ys, u = a[:4]
+        n = len(xs) // 2
+        return orig(self, batch, xs[:n], ys[:n], u[:n], *a[4:], **kw)
+
+    monkeypatch.setattr(GeneralizableSystem, "_step", step)
+
+
+FAULTS = {"unchanged_state": _unchanged_state, "half_batch": _half_batch}
+
+
 class Driver(BaseDriver):
 
     def fit_seed(self, k: int) -> int:
@@ -115,12 +150,12 @@ class Driver(BaseDriver):
         return {"train_step_ms": 1e3 * window_s / stats["steps"]}
 
     def work_flops(self, stats):
-        from ..costs import mlp_v0, mvsnet
+        from ..costs import mvsnet
         cfg = self.cfg
         return stats["steps"] * (
             mvsnet.train_flops(3, cfg["img_wh"][::-1], cfg["planes"],
                                cfg["pad"])
-            + mlp_v0.train_flops(self.batch * self.S))
+            + self.mlp_costs.train_flops(self.batch * self.S))
 
     def release(self):
         self.system = None

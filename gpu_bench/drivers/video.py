@@ -17,7 +17,12 @@ import numpy as np
 import torch
 
 from .. import scenes
-from .base import BaseDriver
+from .base import BaseDriver, alter_answers
+
+
+FAULTS = {"answer_altered": lambda mp: alter_answers(
+    mp, "mvsnerf_tpu_torch.train.finetune", "FinetuneSystem",
+    "render_image")}
 
 
 class SourceViews:
@@ -96,8 +101,7 @@ class Driver(BaseDriver):
         return {"video_frames_per_s": stats["frames"] / window_s}
 
     def work_flops(self, stats):
-        from ..costs import mlp_v0
-        return stats["frames"] * mlp_v0.render_flops(
+        return stats["frames"] * self.mlp_costs.render_flops(
             self.W * self.H * self.cfg["samples_per_ray"])
 
     def release(self):

@@ -21,7 +21,11 @@ import numpy as np
 import torch
 
 from .. import core, scenes
-from .base import BaseDriver
+from .base import BaseDriver, alter_answers
+
+
+FAULTS = {"answer_altered": lambda mp: alter_answers(
+    mp, "mvsnerf_tpu_torch.eval.evaluate", "Evaluator", "render")}
 
 
 class Driver(BaseDriver):
@@ -106,10 +110,10 @@ class Driver(BaseDriver):
                                                           90))}
 
     def work_flops(self, stats):
-        from ..costs import mlp_v0, mvsnet
+        from ..costs import mvsnet
         cfg = self.cfg
         per = mvsnet.forward_flops(3, cfg["img_wh"][::-1], cfg["planes"],
-                                   cfg["pad"]) + mlp_v0.render_flops(
+                                   cfg["pad"]) + self.mlp_costs.render_flops(
             self.W * self.H * cfg["samples_per_ray"])
         return stats["requests"] * per
 

@@ -5,7 +5,9 @@ roofline or of the peak is never made up as 0."""
 
 from __future__ import annotations
 
-from .costs import PEAKS, bound_s, mlp_v0
+import importlib
+
+from .costs import PEAKS, bound_s
 
 # the render body K8 (`render_v0_feats`: PE, MLP, compositing of gathered
 # features) by its name on the card
@@ -42,18 +44,28 @@ def _device_s(ctx, patterns, launches):
     return total
 
 
-def k8_roofline(ctx):
-    """Per cent: K8's bound for the rays it rendered over its device time."""
-    launches = ctx["launches"]["k8"]
+def render_roofline(ctx, kernel: str, counter: str, cost_module: str):
+    """Per cent: a render body's bound for the rays it rendered over its
+    device time. `kernel` is the regular expression of its name on the
+    card, `counter` the name of its launch counter in `ctx["launches"]`,
+    `cost_module` the module of `gpu_bench/costs/` that counts its
+    operations and bytes (`render_flops`, `render_bytes`)."""
+    launches = ctx["launches"].get(counter)
     rays = ctx["stats"].get("rendered_rays")
     if ctx["trace"] is None or not launches or not rays:
         return None
-    t = _device_s(ctx, (K8,), launches)
+    t = _device_s(ctx, (kernel,), launches)
     if not t:
         return None
+    costs = importlib.import_module(f"gpu_bench.costs.{cost_module}")
     s = ctx["config"]["samples_per_ray"]
-    return 100.0 * bound_s(mlp_v0.render_flops(rays * s),
-                           mlp_v0.render_bytes(rays, s)) / t
+    return 100.0 * bound_s(costs.render_flops(rays * s),
+                           costs.render_bytes(rays, s)) / t
+
+
+def k8_roofline(ctx):
+    """Per cent: K8's bound for the rays it rendered over its device time."""
+    return render_roofline(ctx, K8, "k8", "mlp_v0")
 
 
 # CostRegNet's 3-D convolutions on cuDNN: the host operations that launch

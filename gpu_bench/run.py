@@ -5,9 +5,10 @@
         --trace 0
 
 from the root of a checkout. `BENCHMARK.json` names the cell's
-configuration (`gpu_bench/configs/<config>.json`, with the plain reference
-it names) and traffic (`gpu_bench/traffic/<traffic>.json`, whose `driver`
-is a module of `gpu_bench/drivers/`); each per-layer metric is read by
+configuration (`gpu_bench/configs/<config>.json`, with the plain reference,
+the program flags and the cost module it names) and traffic
+(`gpu_bench/traffic/<traffic>.json`, whose `driver` is a module of
+`gpu_bench/drivers/`); each per-layer metric is read by
 `gpu_bench/metrics/<name>.py`. A run builds the program from the seed,
 warms up every shape the cell uses (set-up), measures for `--seconds`
 (with `--trace 1` under `torch.profiler`, reporting the per-layer
@@ -123,7 +124,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     window_s = time.perf_counter() - t_win
     if prof is not None:
         prof.__exit__(None, None, None)
-    launches = {k: v - launches0[k] for k, v in core.launch_counts().items()}
+    launches = {k: v - launches0.get(k, 0)
+                for k, v in core.launch_counts().items()}
 
     dev_info = {"platform": "gpu" if on_card else dev.type,
                 "kind": torch.cuda.get_device_name(dev) if on_card

@@ -6,10 +6,10 @@ cell can have, planted in the timed path, turns `correct` false.
     python -m pytest gpu_bench/tests -q      (~1 min on the CPU)
 """
 
+import importlib
 import json
 
 import pytest
-import torch
 
 import toy
 from gpu_bench import run
@@ -51,75 +51,24 @@ def test_traced_run_on_the_cpu_reads_no_device_metric():
     assert res["metrics"] == {} and "breakdown" not in res
 
 
-def _alter_answers(monkeypatch, cls, attr):
-    orig = getattr(cls, attr)
-
-    def altered(self, *a, **kw):
-        out = orig(self, *a, **kw)
-        return dict(out, rgb=out["rgb"] + 1e-3)
-
-    monkeypatch.setattr(cls, attr, altered)
+def faults(workload):
+    """The faults the cell's driver declares, {name: plant(monkeypatch)}."""
+    _, mix = toy.toy(workload)
+    return importlib.import_module(
+        f"gpu_bench.drivers.{mix['driver']}").FAULTS
 
 
-def _unchanged_state(monkeypatch, cls):
-    """A step that computes its loss and update, then leaves the
-    parameters as they were."""
-    orig = cls._step
-
-    def step(self, *a, **kw):
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
-        before = [p.detach().clone() for p in params]
-        out = orig(self, *a, **kw)
-        with torch.no_grad():
-            for p, b in zip(params, before):
-                p.copy_(b)
-        return out
-
-    monkeypatch.setattr(cls, "_step", step)
+CASES = [(w, f) for w in WORKLOADS for f in faults(w)]
 
 
-def _half_batch(monkeypatch, cls):
-    """Half of the batch left out: the loss is the mean over the rest."""
-    orig = cls._step
-
-    def step(self, *a, **kw):
-        batch, xs, ys, u = a[:4]
-        n = len(xs) // 2
-        return orig(self, batch, xs[:n], ys[:n], u[:n], *a[4:], **kw)
-
-    monkeypatch.setattr(cls, "_step", step)
-
-
-def _finetune_cls():
-    from mvsnerf_tpu_torch.train.finetune import FinetuneSystem
-    return FinetuneSystem
-
-
-def _train_cls():
-    from mvsnerf_tpu_torch.train.generalizable import GeneralizableSystem
-    return GeneralizableSystem
-
-
-def _evaluator_cls():
-    from mvsnerf_tpu_torch.eval.evaluate import Evaluator
-    return Evaluator
-
-
-FAULTS = {
-    "dtu_v0.view": {"answer_altered": lambda mp: _alter_answers(
-        mp, _evaluator_cls(), "render")},
-    "llff_v0.video": {"answer_altered": lambda mp: _alter_answers(
-        mp, _finetune_cls(), "render_image")},
-    "dtu_v0.train": {
-        "unchanged_state": lambda mp: _unchanged_state(mp, _train_cls()),
-        "half_batch": lambda mp: _half_batch(mp, _train_cls())},
-}
-CASES = [(w, f) for w in WORKLOADS for f in FAULTS[w]]
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_every_cell_has_a_fault(workload):
+    assert faults(workload)
 
 
 @pytest.mark.parametrize("workload,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(monkeypatch, workload, fault):
-    FAULTS[workload][fault](monkeypatch)
+    faults(workload)[fault](monkeypatch)
     res = run_toy(workload)
     assert res["correct"] is False
     assert any(c["value"] > c["limit"] for c in res["compared"].values())

@@ -12,6 +12,7 @@ import pytest
 import toy
 from gpu_bench import core
 from gpu_bench.costs import bound_s, mlp_v0
+from mvsnerf_tpu_torch.config import config_parser
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -32,6 +33,17 @@ def test_benchmark_json_keeps_to_the_contract():
         assert NAME.match(c["name"]) and c["file"].startswith("gpu_bench/")
         assert os.path.exists(os.path.join(toy.ROOT, c["file"]))
         assert c["reduced"] == []
+        cfg = toy.load(toy.ROOT, c["file"])
+        assert os.path.exists(os.path.join(toy.HERE, "reference",
+                                           f"{cfg['reference']}.py"))
+        assert os.path.exists(os.path.join(
+            toy.HERE, "costs", f"{cfg.get('costs', 'mlp_v0')}.py"))
+        # the program's parser ignores a flag it does not know
+        known = vars(config_parser([]))
+        assert isinstance(cfg.get("program_flags", []), list)
+        for flag in cfg.get("program_flags", []):
+            assert not flag.startswith("--") or flag[2:].split("=")[0] \
+                .replace("-", "_") in known, (c["name"], flag)
     cells = {w["name"]: w for w in b["workloads"]}
     assert len(cells) == len(b["workloads"])
     assert {w["config"] for w in b["workloads"]} == set(configs)

@@ -37,10 +37,11 @@ def test_the_tf32_control_is_not_correct(card, workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("costreg", ["auto", "dband"])
+@pytest.mark.parametrize("costreg", ["plain", "dband"])
 def test_conv3d_reader_reads_either_route(card, costreg):
     """A traced toy-size generalizable step on cuDNN's 3-D convolutions
-    (the default) and on K10's: the reader finds the work on both."""
+    (`plain`) and on K10's (`dband`, what the default `auto` takes on a
+    card): the reader finds the work on both."""
     cfg, mix = toy.toy("dtu_v0.train", card=True)
     mix = dict(mix, flags=[*mix["flags"], "--costreg_impl", costreg])
     res = run.run_cell(toy.bench(), "dtu_v0.train", 2 ** 31 + 4099, 1.0,
