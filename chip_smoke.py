@@ -103,7 +103,9 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      features) against their twins on one 16384-ray chunk at 128 samples
      over the baked (128, 176, 208, 20) volume, with the bake's time,
      CUDA-event and device times, and, as for K6, the float64 distances
-     and both bounds; (b)
+     and both bounds; K11 (the v1 attention MLP's render body, a seeded
+     v1 MLP) on K8's gathered features, at the view cell's 5120-ray chunk
+     and at 16384 rays, the same way (its launches are phase 14(c)'s); (b)
      `Evaluator` in all three modes, 3 requests each (ms/request, rays/s),
      the `tiled` request against its twin path on the same baked volume,
      launches of K4, K6, K6b and K8; (c) `Evaluator.evaluate` on an
@@ -206,11 +208,13 @@ DTU CLI at 640x512, LPIPS on the card and the post-hoc metric tool.
      bit-equal on both ranks, and `shard_rays_render` of one 640x512
      request against rank 0's one-process chunked render (TOL_K6); (c)
      the v1, v2 and fusion MLPs at full width: a 640x512 chunked request
-     each (K1, K4 and the module's MLP) held to the same request on K4's
-     twin, 10 timed `--net_type v2` fine-tune steps (K4, K5 and the
-     module's MLP under autograd), `evaluate --net_type v2` through the
-     CLI on an LLFF scene at 960x640 (and its `tiled` mode refused); K6,
-     K6b, K7 and K8 never launch for these MLPs.
+     each (K1, K4, and K11 for v1, once a chunk, or the module's MLP for
+     v2 and fusion) held to the same request on the twins of K4 and K11
+     (the module's forward), 10 timed `--net_type v2` fine-tune steps (K4,
+     K5 and the module's MLP under autograd), `evaluate --net_type v2`
+     through the CLI on an LLFF scene at 960x640 (and its `tiled` mode
+     refused); K6, K6b, K7 and K8 never launch for these MLPs, nor K11
+     for v2 and fusion.
  15. the JAX package's `.msgpack` snapshots, the batch driver, the
      generalizable validation panels and the reference helpers: (a)
      phase 6's fine-tune at full width, 5 steps, its state written as a
@@ -400,6 +404,9 @@ BUILD_AGAIN = 2
 # steps)
 DP_TIMED, DP_RANKS, DP_STEPS, MLP_STEPS = 10, 2, 3, 10
 MLP_TYPES = ("v1", "v2", "fusion")
+# the benchmark's view chunk (the evaluate CLI's --chunk 1024 x 5), at
+# which phase 9 holds K11 to its twin besides CHUNK
+VIEW_CHUNK = 5120
 # phase 15: run_batch's fine-tune of one scene is cut to RUN_BATCH_STEPS
 # steps (its only cut; the reference runs 10,000). Two generalizable
 # systems restored from one snapshot take bit-equal-state first steps
@@ -2060,9 +2067,11 @@ class EvalScene:
 
 
 def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
-    """Phase 9; returns the K6b, K8 and K5-at-C=20 entries."""
+    """Phase 9; returns the K6b, K8, K11 and K5-at-C=20 entries."""
     import torch
+    from gpu_bench.costs import mlp_v1 as costs_v1
     from mvsnerf_tpu_torch.eval.video import make_path, render_video
+    from mvsnerf_tpu_torch.models.nerf_mlp import MVSNeRF
     from mvsnerf_tpu_torch.ops import mlp_train as k7
     from mvsnerf_tpu_torch.ops import render_fused as rf
     from mvsnerf_tpu_torch.ops.color_warp import color_warp
@@ -2134,8 +2143,33 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
         w_gap = max_err(f_k["weights"].sum(-1), f_k["acc"])
         print(f"   K6b inputs: acc mean {float(r_p['acc'].mean()):.4f}; "
               f"K8: |sum of weights - acc| max {w_gap:.2e}")
+        # K11 on the same features with phase 14(c)'s seeded v1 MLP; its
+        # bound from the benchmark's v1 counts, the attention's 2,700
+        # multiply-adds a sample counted with the trunk's
+        mlp_v1 = seeded_init_(MVSNeRF("v1", device=dev),
+                              torch.Generator().manual_seed(SEED + 20))
+        m1_64 = copy.deepcopy(mlp_v1).double()
+        for n in (VIEW_CHUNK, CHUNK):
+            a = tuple(x[:n] for x in f_args[:4]) + (mlp_v1,)
+            v_k, v_p = rf.render_v1_feats(*a), rf.render_v1_feats_plain(*a)
+            kernel_entry(kernels, f"K11 render_v1_feats {n}x{N_SAMPLES}",
+                         "mvsnerf_tpu_torch/csrc/render_v1.cu",
+                         "none (the JAX package computes v1 in XLA, "
+                         "mvsnerf_tpu/models/nerf_mlp.py:117)",
+                         max_err(v_k, v_p), TOL_K6,
+                         lambda a=a: rf.render_v1_feats(*a),
+                         lambda a=a: rf.render_v1_feats_plain(*a), None,
+                         costs_v1.render_bytes(n, N_SAMPLES),
+                         costs_v1.render_flops(n * N_SAMPLES),
+                         RENDER_TC_PASSES, **f64_anchor(
+                             v_k, v_p, lambda a=a: rf.render_v1_feats_plain(
+                                 *(x.double() for x in a[:4]), m1_64)))
+            print(f"   K11 {n} rays: acc mean {float(v_p['acc'].mean()):.4f}"
+                  f"; |sum of weights - acc| max "
+                  f"{max_err(v_k['weights'].sum(-1), v_k['acc']):.2e}")
+            del a, v_k, v_p
         del pts, rays_d, z, ndc, dirs, colors, feats, r_k, r_p, f_k, f_p, \
-            b_args, f_args, vol20, mlp64
+            b_args, f_args, vol20, mlp64, mlp_v1, m1_64
     report(9, kernels, failures)
 
     # ---- (b) the Evaluator in all three modes, launch counters reset
@@ -2195,8 +2229,9 @@ def color_phase(dev, mlp, mvsnet, ev, src, requests, failures):
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the Evaluator's path",
               failures)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    for k in kernels:  # K11's launches are phase 14(c)'s
+        if not k["name"].startswith("K11 "):
+            k["launches"] = launches[k["name"]]
     del outs, twin, rgb, baked_gap
 
     # ---- (c) Evaluator.evaluate on an in-memory DTU-like dataset
@@ -4068,9 +4103,10 @@ def dp_two_ranks(mlp, mvsnet, sample, failures):
 
 def mlp_types_phase(dev, mvsnet, failures, ft_step_ms):
     """Phase 14 (c): v1, v2 and fusion at full width: a request per type
-    on the chunked route held to the same request on K4's twin, 10 v2
-    fine-tune steps, `evaluate --net_type v2` through the CLI; K7, K8, K6
-    and K6b never launch for these MLPs."""
+    on the chunked route held to the same request on the twins of K4 and
+    K11, 10 v2 fine-tune steps, `evaluate --net_type v2` through the CLI;
+    K7, K8, K6 and K6b never launch for these MLPs, K11 once a chunk for
+    v1 and never for the others. Returns v1's K11 launches."""
     import tempfile
 
     import torch
@@ -4078,11 +4114,13 @@ def mlp_types_phase(dev, mvsnet, failures, ft_step_ms):
     from mvsnerf_tpu_torch.data import synthetic
     from mvsnerf_tpu_torch.eval.evaluate import Evaluator
     from mvsnerf_tpu_torch.models.nerf_mlp import MVSNeRF
+    from mvsnerf_tpu_torch.ops import render_fused as rf
     from mvsnerf_tpu_torch.ops.color_warp import color_warp_plain
     from mvsnerf_tpu_torch.render import renderer
 
-    counters = dp_counters()
+    counters = {**dp_counters(), "K11": (rf.render_v1_feats, "launches")}
     never = ("K6", "K6b", "K7 fwd", "K7 bwd", "K8")
+    n_chunks = -(-H * W // CHUNK)
     imgs_norm, projs, pose_src = make_scene(np.random.default_rng(SEED))
     rays = rays_for_pose(pose(0, 0.02, 0.1), pose_src["intrinsics"][0], H,
                          W, dev)
@@ -4097,21 +4135,27 @@ def mlp_types_phase(dev, mvsnet, failures, ft_step_ms):
             ev.build_volume(imgs_norm, projs, NEAR_FAR, pose_src)
             out, ms = synced_ms(lambda: ev.render(rays, H, W, "chunked"))
             counts = read_counts(counters)
-            with swapped(renderer, "color_warp", color_warp_plain):
+            with swapped(renderer, "color_warp", color_warp_plain), \
+                    swapped(renderer, "render_v1_feats",
+                            rf.render_v1_feats_plain):
                 twin, twin_ms = synced_ms(
                     lambda: ev.render(rays, H, W, "chunked"))
         err = max(max_err(out[k], twin[k]) for k in ("rgb", "depth", "acc"))
         finite = all(bool(torch.isfinite(out[k]).all()) for k in out)
         print(f"[14 {net_type}] one {H}x{W} chunked request: {ms:.1f} ms "
-              f"(K4's twin: {twin_ms:.1f} ms), max abs err against the "
-              f"twin's {err:.3e} (tol {TOL_K6:.0e}); acc mean "
+              f"(the twins of K4 and K11: {twin_ms:.1f} ms), max abs err "
+              f"against the twins' {err:.3e} (tol {TOL_K6:.0e}); acc mean "
               f"{float(out['acc'].mean()):.4f}; launches "
               f"{ {k: n for k, n in counts.items() if n} }")
         check(finite and err <= TOL_K6, f"[14] the {net_type} request "
-              "disagrees with K4's twin or is not finite", failures)
+              "disagrees with the twins' or is not finite", failures)
+        k11 = n_chunks if net_type == "v1" else 0
         check(counts["K1"] > 0 and counts["K4"] > 0 and
-              not any(counts[k] for k in never),
-              f"[14] the {net_type} request's launches {counts}", failures)
+              counts["K11"] == k11 and not any(counts[k] for k in never),
+              f"[14] the {net_type} request's launches {counts} (K11 "
+              f"{k11} wanted)", failures)
+        if net_type == "v1":
+            k11_launches = counts["K11"]
         del ev, out, twin
         torch.cuda.empty_cache()
 
@@ -4171,11 +4215,12 @@ def mlp_types_phase(dev, mvsnet, failures, ft_step_ms):
           not any(counts[k] for k in never) and "v0 MLP" in refused,
           f"[14] evaluate --net_type v2: launches {counts}, tiled "
           f"{refused[:80]}", failures)
+    return k11_launches
 
 
 def parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms):
     """Phase 14: (a) NCCL at world size 1, (b) two gloo ranks on the one
-    card, (c) the v1, v2 and fusion MLPs."""
+    card, (c) the v1, v2 and fusion MLPs. Returns (c)'s K11 launches."""
     import torch
     t_phase = time.perf_counter()
     sample = generalizable_sample(np.random.default_rng(SEED + 3))
@@ -4184,10 +4229,11 @@ def parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms):
     dp_two_ranks(mlp, mvsnet, sample, failures)
     t_b = time.perf_counter()
     torch.cuda.empty_cache()
-    mlp_types_phase(dev, mvsnet, failures, ft_step_ms)
+    k11_launches = mlp_types_phase(dev, mvsnet, failures, ft_step_ms)
     print(f"[14 time] phase 14 took {time.perf_counter() - t_phase:.1f} s "
           f"((a) {t_a - t_phase:.1f}, (b) {t_b - t_a:.1f}, (c) "
           f"{time.perf_counter() - t_b:.1f})")
+    return k11_launches
 
 
 
@@ -5323,7 +5369,11 @@ def main():
     # ---- 14. data parallelism (NCCL at one rank, two gloo ranks on the
     # card) and the v1, v2 and fusion MLPs
     torch.cuda.empty_cache()
-    parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms, ft_step_ms)
+    k11_launches = parallel_phase(dev, mlp, mvsnet, failures, gen_step_ms,
+                                  ft_step_ms)
+    for k in kernels:
+        if k["name"].startswith("K11 "):
+            k["launches"] = k11_launches
 
     # ---- 15. resuming from JAX's .msgpack snapshots, run_batch, the
     # generalizable validation panels, the reference helpers

@@ -56,6 +56,10 @@ SIGNATURES = {
                         _P],
     # -> bytes of dynamic shared memory the render body takes a block
     "render_v0_smem_bytes": [],
+    # ndc, z, feats, dirs, weights, tc, out, wout, aout, fout, N, S,
+    # n_weights, n_tc, stream
+    "render_v1_feats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _P],
     # vol, ndc, out, n_samples, D, HP, WP, C, stream
     "volume_gather_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, ndc, gvol, n_samples, D, HP, WP, C, adds (or null), stream

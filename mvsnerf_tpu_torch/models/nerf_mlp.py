@@ -23,9 +23,11 @@ Input layout x = [PE(xyz_ndc) (63) | features (20) | viewdirs (3)];
 `forward_alpha` takes x without the viewdirs and returns alpha alone.
 State-dict keys are the reference's network_fn_state_dict keys (`nerf.*`);
 v0 and v2 share keys and shapes, so the caller names the type
-(io/torch_ckpt.py). Only v0 at D=6, W=128 with skips (4,) runs on the
-hand-written kernels K6, K7 and K8 (`MVSNeRF.runs_v0_kernels`); every
-other type or shape runs these modules, as JAX's kernels are v0-only too.
+(io/torch_ckpt.py). v0 at D=6, W=128 with skips (4,) runs on the
+hand-written kernels K6, K7 and K8, and v1 at D=6, W=128 renders on K11
+where no gradient is taken (`MVSNeRF.fused_body`); every other type or
+shape, and v1 under a gradient, runs these modules (JAX's kernels are
+v0-only; it computes v1 in XLA).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import trace_context
 from .layers import MultiHeadAttention
 
 # the mvsnerf-v0 checkpoint's shape (create_nerf_mvs defaults)
@@ -149,15 +152,18 @@ class RendererAttention(_Renderer):
 
     def _color(self, input_feats):
         """The colour fused over the per-view (RGB, mask) tokens, each
-        joined to the volume's 8 channels (models.py:426-436)."""
-        lead = input_feats.shape[:-1]
-        n_views = (input_feats.shape[-1] - 8) // 4
-        colors = input_feats[..., 8:].reshape(-1, n_views, 4)
-        vol8 = input_feats[..., :8].reshape(-1, 1, 8).expand(-1, n_views, 8)
-        tokens = torch.cat([colors, vol8], dim=-1)
-        out, _ = self.color_attention(tokens, tokens, tokens)
-        fused = torch.sigmoid(self.weight_out(out)).sum(dim=-2)
-        return fused.reshape(*lead, 3)
+        joined to the volume's 8 channels (models.py:426-436); the span
+        `render.color_attention`."""
+        with trace_context("render.color_attention"):
+            lead = input_feats.shape[:-1]
+            n_views = (input_feats.shape[-1] - 8) // 4
+            colors = input_feats[..., 8:].reshape(-1, n_views, 4)
+            vol8 = input_feats[..., :8].reshape(-1, 1, 8).expand(
+                -1, n_views, 8)
+            tokens = torch.cat([colors, vol8], dim=-1)
+            out, _ = self.color_attention(tokens, tokens, tokens)
+            fused = torch.sigmoid(self.weight_out(out)).sum(dim=-2)
+            return fused.reshape(*lead, 3)
 
     def forward_alpha(self, x):
         raise NotImplementedError(
@@ -237,11 +243,16 @@ class MVSNeRF(nn.Module):
         self.nerf = RENDERERS[net_type](D=D, W=W, device=device)
 
     @property
-    def runs_v0_kernels(self) -> bool:
-        """Whether K6, K7 and K8 can take this MLP: v0 at the reference
-        checkpoint's shape (D=6, W=128, skips (4,))."""
-        return self.net_type == "v0" and self.D == D and self.W == W and \
-            self.nerf.skips == SKIPS
+    def fused_body(self) -> str | None:
+        """The hand-written bodies that can take this MLP, by the MLP they
+        compute: "v0" (K6, K6b, K7, K8) for v0 at the reference
+        checkpoint's shape (D=6, W=128, skips (4,)), "v1" (K11) for v1 at
+        D=6, W=128; None for every other type or shape."""
+        if self.D != D or self.W != W:
+            return None
+        if self.net_type == "v0" and self.nerf.skips == SKIPS:
+            return "v0"
+        return "v1" if self.net_type == "v1" else None
 
     def forward(self, x):
         return self.nerf(x)

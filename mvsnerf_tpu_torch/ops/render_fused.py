@@ -1,4 +1,5 @@
-"""K6, K6b and K8: fused PE + v0 MLP + compositing, and their plain twins.
+"""K6, K6b and K8: fused PE + v0 MLP + compositing; K11 the same for the
+v1 attention MLP; and their plain twins.
 
 `render_v0` renders rays over an encoding volume: K6 when the 12 per-sample
 colour channels of K4 are given with an 8-channel volume (the hybrid
@@ -26,6 +27,14 @@ heads, the direction rows) and as `pack_v0_weights_tc`, the padded
 matrices split into TF32 hi/lo pieces (`split_tf32`) in the order the
 kernel's fragments read them. Nothing is cached across calls: a trainer
 changes the MLP between them.
+
+`render_v1_feats` (K11, csrc/render_v1.cu) renders gathered features
+through the v1 MLP (`Renderer_attention`): the per-sample colour attention
+over the three source views' tokens in f32, then the additive-bias trunk
+and the heads on the tensor cores as K8's, packed by `pack_v1_weights` and
+`pack_v1_weights_tc`. It replaces no TPU kernel (JAX renders v1 in XLA,
+mvsnerf_tpu/models/nerf_mlp.py:117 `mlp_v1_apply`); its twin
+`render_v1_feats_plain` is the module's forward and `raw2outputs`.
 """
 
 from __future__ import annotations
@@ -75,17 +84,18 @@ TC_LAYERS = (
     ("TC_VIEWS", "views_linears.0", list(range(128)), 64))
 
 
-def _tc_offsets():
+def _stream_offsets(layers):
     """Offset name -> offset in floats of each layer's hi/lo fragments (K x
-    N x 2 floats), and the stream's length."""
+    N x 2 floats) in a stream laid out as `TC_LAYERS` (or `TCT_LAYERS`:
+    columns for rows, K for N), and its length."""
     offsets, pos = {}, 0
-    for name, _, rows, n in TC_LAYERS:
+    for name, _, rows, n in layers:
         offsets[name] = pos
         pos += len(rows) * n * 2
     return offsets, pos
 
 
-TC_OFFSETS, TC_TOTAL = _tc_offsets()
+TC_OFFSETS, TC_TOTAL = _stream_offsets(TC_LAYERS)
 
 
 def split_tf32(x):
@@ -109,20 +119,34 @@ def fragment_order(m):
         K // 8, N // 8, 32, 2)
 
 
-@functools.lru_cache(maxsize=None)
-def _tc_index(device):
-    """For each (lane, b0 / b1) slot of the stream's hi half, the index of
-    its weight in `pack_v0_weights`' vector, N_WEIGHTS for a zero row: a
-    layout, the same for every MLP, so kept per device."""
-    offsets = _pack_offsets()
+def _stream_index(layers, offsets, n_weights):
+    """For each (lane, b0 / b1) slot of a stream's hi half (`layers` as
+    `TC_LAYERS`), the index of its weight in the f32 pack whose layers
+    start at `offsets`, `n_weights` for a zero row."""
     parts = []
-    for _, layer, rows, n in TC_LAYERS:
-        m = torch.full((len(rows), n), N_WEIGHTS, dtype=torch.long)
+    for _, layer, rows, n in layers:
+        m = torch.full((len(rows), n), n_weights, dtype=torch.long)
         for k, r in enumerate(rows):
             if r != _PAD:
                 m[k] = offsets[layer] + r * n + torch.arange(n)
         parts.append(fragment_order(m).reshape(-1))
-    return torch.cat(parts).to(device)
+    return torch.cat(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_index(device):
+    """`_stream_index` of the v0 stream: a layout, the same for every MLP,
+    so kept per device."""
+    return _stream_index(TC_LAYERS, _pack_offsets(), N_WEIGHTS).to(device)
+
+
+def _split_stream(weights, index):
+    """The stream from an f32 pack and its `_stream_index`: each lane's
+    {b0 hi, b1 hi, b0 lo, b1 lo} together."""
+    ext = torch.cat([weights, weights.new_zeros(1)])
+    pairs = ext[index].view(-1, 2)
+    hi, lo = split_tf32(pairs)
+    return torch.cat([hi, lo], 1).reshape(-1)
 
 
 def pack_v0_weights_tc(weights):
@@ -130,10 +154,7 @@ def pack_v0_weights_tc(weights):
     `weights` (`pack_v0_weights`' layout): each layer of `TC_LAYERS` zero-
     padded to K rows, in fragment order, with each lane's {b0 hi, b1 hi,
     b0 lo, b1 lo} together; (TC_TOTAL,) float32."""
-    ext = torch.cat([weights, weights.new_zeros(1)])
-    pairs = ext[_tc_index(weights.device)].view(-1, 2)
-    hi, lo = split_tf32(pairs)
-    return torch.cat([hi, lo], 1).reshape(-1)
+    return _split_stream(weights, _tc_index(weights.device))
 
 
 # The transposed stream of K7's backward (csrc/mlp_tc.cuh `TCT_*`), in the
@@ -150,17 +171,7 @@ TCT_LAYERS = (
     ("TCT_PTS_BIAS", "pts_bias", list(range(20)) + [_PAD] * 4, 128))
 
 
-def _tct_offsets():
-    """Offset name -> offset in floats of each transposed layer (K x N x 2
-    floats), and the stream's length."""
-    offsets, pos = {}, 0
-    for name, _, cols, k in TCT_LAYERS:
-        offsets[name] = pos
-        pos += k * len(cols) * 2
-    return offsets, pos
-
-
-TCT_OFFSETS, TCT_TOTAL = _tct_offsets()
+TCT_OFFSETS, TCT_TOTAL = _stream_offsets(TCT_LAYERS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,18 +193,15 @@ def pack_v0_weights_tct(weights):
     vector, laid out and split as `pack_v0_weights_tc`'s; (TCT_TOTAL,)
     float32. On a card K7 writes it with its own kernel
     (csrc/mlp_v0_train.cu `mlp_pack_kernel`); this is its reference."""
-    ext = torch.cat([weights, weights.new_zeros(1)])
-    pairs = ext[_tct_index(weights.device)].view(-1, 2)
-    hi, lo = split_tf32(pairs)
-    return torch.cat([hi, lo], 1).reshape(-1)
+    return _split_stream(weights, _tct_index(weights.device))
 
 
 def require_v0_mlp(mlp, what: str):
     """Raise unless `mlp` is the v0 MLP at D=6, W=128, the one MLP the
     kernels K6, K6b, K7 and K8 compute (v2 has v0's shapes, so a shape
-    check alone would let it through). JAX's kernels are v0-only too
-    (mvsnerf_tpu/render/tiled.py:112-113, pallas_mlp.py)."""
-    if not mlp.runs_v0_kernels:
+    check alone would let it through; v1 has K11 alone). JAX's kernels are
+    v0-only too (mvsnerf_tpu/render/tiled.py:112-113, pallas_mlp.py)."""
+    if mlp.fused_body != "v0":
         raise ValueError(
             f"{what}: the kernel computes the v0 MLP at D=6, W=128, got "
             f"--net_type {mlp.net_type} --netdepth {mlp.D} --netwidth "
@@ -387,3 +395,147 @@ def render_v0_feats(pts_ndc, feats, dirs, z_vals, mlp,
 
 
 render_v0_feats.launches = 0
+
+
+# ---------------------------------------------------------------- K11 ----
+
+# csrc/render_v1.cu's packed layer order: (module attribute, in, out, with
+# a bias); the LayerNorm's scale and shift are a (1, 12) matrix and its
+# "bias"
+_V1_LAYERS = ([("pts_linears.0", 63, 128, True), ("pts_bias", 11, 128, True)]
+              + [(f"pts_linears.{i}", 128, 128, True) for i in range(1, 6)]
+              + [("alpha_linear", 128, 1, True),
+                 ("feature_linear", 128, 128, True),
+                 ("views_linears.0", 131, 64, True),
+                 ("rgb_linear", 64, 3, True),
+                 ("color_attention.w_qs", 12, 16, False),
+                 ("color_attention.w_ks", 12, 16, False),
+                 ("color_attention.w_vs", 12, 16, False),
+                 ("color_attention.fc", 16, 12, False),
+                 ("color_attention.layer_norm", 1, 12, True),
+                 ("weight_out", 12, 3, True)])
+N_WEIGHTS_V1 = sum(i * o + (o if b else 0) for _, i, o, b in _V1_LAYERS)
+
+
+def _pack_v1_offsets():
+    """Layer name -> offset of its (in, out) matrix in `pack_v1_weights`."""
+    offsets, pos = {}, 0
+    for name, n_in, n_out, bias in _V1_LAYERS:
+        offsets[name] = pos
+        pos += n_in * n_out + (n_out if bias else 0)
+    return offsets
+
+
+# csrc/render_v1.cu's tensor-core stream (`TC1_*`), as `TC_LAYERS`:
+# pts_bias reads [volume (8) | colour (3)], padded to K 16; no PE skip
+TC1_LAYERS = (
+    ("TC1_PTS_BIAS", "pts_bias", list(range(11)) + [_PAD] * 5, 128),
+    ("TC1_PTS_0", "pts_linears.0", list(range(63)) + [_PAD], 128),
+    *((f"TC1_PTS_{i}", f"pts_linears.{i}", list(range(128)), 128)
+      for i in range(1, 6)),
+    ("TC1_FEATURE", "feature_linear", list(range(128)), 128),
+    ("TC1_VIEWS", "views_linears.0", list(range(128)), 64))
+TC1_OFFSETS, TC1_TOTAL = _stream_offsets(TC1_LAYERS)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc1_index(device):
+    """`_stream_index` of the v1 stream, kept per device."""
+    return _stream_index(TC1_LAYERS, _pack_v1_offsets(),
+                         N_WEIGHTS_V1).to(device)
+
+
+def pack_v1_weights(mlp):
+    """The v1 MLP's weights as K11 reads them: for each layer of
+    `_V1_LAYERS`, the (in, out) matrix row-major, then its bias where it
+    has one."""
+    if mlp.fused_body != "v1":
+        raise ValueError(
+            f"v1 kernel: the kernel computes the v1 MLP at D=6, W=128, got "
+            f"--net_type {mlp.net_type} --netdepth {mlp.D} --netwidth "
+            f"{mlp.W}")
+    parts = []
+    for name, n_in, n_out, bias in _V1_LAYERS:
+        mod = mlp.nerf.get_submodule(name)
+        if mod.weight.numel() != n_in * n_out:
+            raise ValueError(f"v1 kernel: {name} is "
+                             f"{tuple(mod.weight.shape)}, want "
+                             f"({n_out}, {n_in})")
+        parts.append(mod.weight.reshape(n_out, n_in).t().reshape(-1))
+        if bias:
+            parts.append(mod.bias)
+    return torch.cat(parts).float().contiguous()
+
+
+def pack_v1_weights_tc(weights):
+    """K11's tensor-core stream from `pack_v1_weights`' vector, laid out
+    and split as `pack_v0_weights_tc`'s; (TC1_TOTAL,) float32."""
+    return _split_stream(weights, _tc1_index(weights.device))
+
+
+def render_v1_feats_plain(pts_ndc, feats, dirs, z_vals, mlp):
+    """Plain PyTorch twin of K11: the module's forward and `raw2outputs`;
+    same arguments and result as `render_v1_feats`."""
+    views = dirs[:, None].expand(-1, pts_ndc.shape[1], -1)
+    x = torch.cat([positional_encoding(pts_ndc, 10), feats, views], dim=-1)
+    raw = mlp(x)
+    out = raw2outputs(raw, z_vals)
+    res = {k: out[k] for k in ("rgb", "depth", "acc", "weights", "alpha")}
+    res["feats"] = torch.cat([feats[..., :8], raw[..., 4:]], dim=-1)
+    return res
+
+
+def render_v1_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp):
+    """`render_v1_feats` on the card: checks the arguments, packs the
+    weights (anew each call, as K8's) and launches K11."""
+    N, S = _check_rays("render_v1_feats", pts_ndc, z_vals, dirs)
+    if feats.shape != (N, S, N_FEATS):
+        raise ValueError(f"render_v1_feats kernel: feats "
+                         f"{tuple(feats.shape)}, want ({N}, {S}, 20)")
+    dev = pts_ndc.device
+    _check_tensors("render_v1_feats", dev, pts_ndc=pts_ndc, feats=feats,
+                   dirs=dirs, z_vals=z_vals)
+    with torch.no_grad():
+        weights = pack_v1_weights(mlp)
+        tc = pack_v1_weights_tc(weights)
+    _check_tensors("render_v1_feats", dev, weights=weights)
+    out = torch.empty((N, 5), device=dev)
+    wout = torch.empty((N, S), device=dev)
+    aout = torch.empty((N, S), device=dev)
+    fout = torch.empty((N, S, 14), device=dev)
+    rc = library().render_v1_feats(
+        pts_ndc.data_ptr(), z_vals.data_ptr(), feats.data_ptr(),
+        dirs.data_ptr(), weights.data_ptr(), tc.data_ptr(), out.data_ptr(),
+        wout.data_ptr(), aout.data_ptr(), fout.data_ptr(), N, S,
+        N_WEIGHTS_V1, TC1_TOTAL, stream_of(pts_ndc))
+    check(rc, "render_v1_feats")
+    render_v1_feats.launches += 1
+    return {"rgb": out[:, :3], "depth": out[:, 3], "acc": out[:, 4],
+            "weights": wout, "alpha": aout, "feats": fout}
+
+
+def render_v1_feats(pts_ndc, feats, dirs, z_vals, mlp):
+    """K11: render N rays of S samples through the v1 attention MLP from
+    their gathered features (csrc/render_v1.cu).
+
+    Args:
+        pts_ndc: (N, S, 3) sample NDC (the PE's input).
+        feats: (N, S, 20) per-sample features: 8 volume channels, then
+            each source view's [RGB, mask].
+        dirs: (N, 3) unit ray directions in the reference frame.
+        z_vals: (N, S) metric depths.
+        mlp: the v1 `MVSNeRF` module at D=6, W=128.
+    Returns:
+        dict rgb (N, 3), depth (N,), acc (N,), weights and alpha (N, S),
+        and feats (N, S, 14), each sample's volume channels and twice its
+        colour fused by the attention (the module's outputs 4-9), as the
+        module's route folds them; no white background.
+    """
+    if pts_ndc.device.type == "cpu":
+        return render_v1_feats_plain(pts_ndc, feats, dirs, z_vals, mlp)
+    if pts_ndc.device.type != "cuda":
+        raise ValueError(f"render_v1_feats: no kernel for {pts_ndc.device}")
+    return render_v1_feats_kernel(pts_ndc, feats, dirs, z_vals, mlp)
+
+
+render_v1_feats.launches = 0

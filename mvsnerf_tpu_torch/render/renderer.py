@@ -12,17 +12,23 @@ The eval route fetches with `grid_sample`. The training route
 (`training=True`, the fine-tune step) differentiates with respect to the
 volume: the fetch goes through K5 (`sample_volume`) and the MLP through
 K7 (`mlp_v0_train`). Where no gradient is asked for (`torch.no_grad`,
-every full-image render), the gathered features go to K8
-(`render_v0_feats`) for PE, MLP and compositing in one kernel; otherwise
-the eval route runs the module's MLP and `raw2outputs`. `twins=True` runs
-the kernels' plain twins instead, to hold one against the other.
+every full-image render), the gathered features go to a fused render body
+for PE, MLP and compositing in one kernel: K8 (`render_v0_feats`) for the
+v0 MLP, K11 (`render_v1_feats`) for the v1 attention MLP; otherwise the
+eval route runs the module's MLP and `raw2outputs`. `twins=True` runs the
+kernels' plain twins instead, to hold one against the other.
 
-K7 and K8 take the v0 MLP at D=6, W=128 alone (`MVSNeRF.runs_v0_kernels`),
-as JAX's Pallas MLP does. Every other `--net_type` (v1, v2, fusion) or
-shape runs the module's MLP and `raw2outputs` on both routes, as JAX's
-`run_network` does (renderer.py:254-263); the route follows the
-configuration, and K4 and K5 serve every type. v1's fused colours fold
-into the returned `feats` (JAX renderer.py:307-309).
+`MVSNeRF.fused_body` names the body an MLP can take: K7 and K8 take the
+v0 MLP at D=6, W=128, as JAX's Pallas MLP does, and K11 the v1 MLP at
+D=6, W=128 (JAX computes v1 in XLA). Every other `--net_type` (v2,
+fusion) or shape, and v1 under a gradient (the fine-tune), runs the
+module's MLP and `raw2outputs`, as JAX's `run_network` does
+(renderer.py:254-263); the route follows the configuration, and K4 and
+K5 serve every type. v1's fused colours fold into the returned `feats`
+(JAX renderer.py:307-309) on both of its routes: K11 writes each sample's
+folded features and alpha, so its route returns what the module's does
+(`disp` aside). The only reader of `feats` is the fusion trainer, which
+refuses v1.
 
 `render_density` evaluates the MLP's alpha head alone over the volume's
 voxels, the density volume's refresh (`--use_density_volume`), and
@@ -42,7 +48,8 @@ from ..ops.encoding import positional_encoding
 from ..ops.geometry import get_ndc_coordinate, get_ndc_coordinate_bbox
 from ..ops.interp import index_point_feature
 from ..ops.mlp_train import mlp_v0_train, mlp_v0_train_plain
-from ..ops.render_fused import render_v0_feats, render_v0_feats_plain
+from ..ops.render_fused import render_v0_feats, render_v0_feats_plain, \
+    render_v1_feats, render_v1_feats_plain
 from ..ops.sampling import ray_marcher, ray_marcher_fine
 from ..ops.volume_gather import sample_volume, sample_volume_plain
 from ..utils.profiling import trace_context
@@ -114,7 +121,7 @@ def run_network(mlp, pts_ndc, viewdirs, feats, training: bool = False,
     the v0 MLP at D=6, W=128 through K7 (or its twin); every other MLP is
     the module's forward."""
     x = network_input(pts_ndc, viewdirs, feats)
-    if training and mlp.runs_v0_kernels:
+    if training and mlp.fused_body == "v0":
         return (mlp_v0_train_plain if twins else mlp_v0_train)(mlp, x)
     return mlp(x)
 
@@ -124,8 +131,9 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
                 training: bool = False, twins: bool = False,
                 use_color_volume: bool = False, with_alpha: bool = False):
     """The render entry (renderer.py:138-165, 266-313). With gradients
-    off, PE, MLP and compositing of the v0 MLP run in K8 (or its twin with
-    `twins`); any other MLP runs the module and `raw2outputs`.
+    off, PE, MLP and compositing of the v0 MLP run in K8 and those of the
+    v1 MLP in K11 (or their twins with `twins`); any other MLP runs the
+    module and `raw2outputs`.
 
     Args:
         mlp: an `MVSNeRF` module of any net type.
@@ -142,8 +150,8 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
     Returns:
         dict rgb, depth, acc, weights, the gathered (N, S, 20) `feats`
         (v1: the volume's 8 channels and its 6 fused-colour outputs), and
-        disp and alpha on the module's route, alpha on K8's with
-        `with_alpha`.
+        disp and alpha on the module's route, alpha on K11's, and on
+        K8's with `with_alpha`.
     """
     with trace_context("render.features"):
         unit_dirs = rays_dir / torch.linalg.norm(rays_dir, dim=-1,
@@ -151,12 +159,18 @@ def render_rays(mlp, volume, pts_world, pts_ndc, z_vals, rays_dir, w2c_ref,
         angle = gen_dir_feature(w2c_ref, unit_dirs)
         feats = gen_pts_feats(volume, pts_ndc, pts_world, w2cs, intrinsics,
                               imgs, training, twins, use_color_volume)
+    body = None if torch.is_grad_enabled() else mlp.fused_body
     with trace_context("render.mlp"):
-        if not torch.is_grad_enabled() and mlp.runs_v0_kernels:
-            fused = render_v0_feats_plain if twins else render_v0_feats
-            out = fused(pts_ndc.contiguous(), feats.contiguous(),
-                        angle.contiguous(), z_vals.contiguous(), mlp,
-                        with_alpha)
+        if body is not None:
+            args = (pts_ndc.contiguous(), feats.contiguous(),
+                    angle.contiguous(), z_vals.contiguous(), mlp)
+            if body == "v0":
+                fused = render_v0_feats_plain if twins else render_v0_feats
+                out = fused(*args, with_alpha)
+            else:
+                fused = render_v1_feats_plain if twins else render_v1_feats
+                out = fused(*args)
+                feats = out.pop("feats")
             if white_bkgd:
                 out["rgb"] = out["rgb"] + (1.0 - out["acc"][:, None])
         else:
@@ -237,7 +251,7 @@ def make_chunked_renderer(mlp, volume, imgs, near_far, pose_source,
                           chunk: int = 16384, lindisp: bool = False):
     """The chunked full-image renderer (mvsnerf_tpu/eval/evaluate.py:77
     `render_rays_buffer`): K4 colours and the `grid_sample` fetch, then K8
-    for PE, MLP and compositing, chunk by chunk. Arguments as
+    (v0) or K11 (v1) for PE, MLP and compositing, chunk by chunk. Arguments as
     `make_hybrid_renderer`. Returns fn(rays (N, 8), H, W) -> dict rgb
     (N, 3), depth, acc (N,)."""
     w2cs, intrinsics = pose_source["w2cs"], pose_source["intrinsics"]

@@ -369,7 +369,7 @@ def test_v2_step_matches_jax(case, tmp_path):
     export_reference_checkpoint(ckpt, mlp_p, case["mvs"],
                                 volume=case["volume"])
     port = _port_system(dict(case, ckpt=ckpt), "--net_type v2")
-    assert port.mlp.net_type == "v2" and not port.mlp.runs_v0_kernels
+    assert port.mlp.net_type == "v2" and port.mlp.fused_body is None
     step, params, opt_state = _jax_stepper(case, "v2", mlp_p)
     b = case["batches"][0]
     _, _, loss, grads = step(params, opt_state, jnp.asarray(b["rays"]),
